@@ -1,0 +1,67 @@
+"""The port's 13-argument CLI render on the CPU (its plain versions),
+from the vendored golden .goofy caches."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import shutil  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from goofer_tpu_torch import cli  # noqa: E402
+from goofer_tpu_torch.utils.audio_io import read_wav  # noqa: E402
+from goofer_tpu_torch.utils.metrics import lsd_db  # noqa: E402
+
+GOLDEN = Path(__file__).parent / "golden" / "ref"
+# tests/test_golden.py's budget for these configs: the upstream
+# seed-to-seed LSD floor + 0.5 dB
+BUDGET_DB = {"neutral": 0.76 + 0.5, "formant_chain": 1.04 + 0.5}
+ARGS = {
+    "neutral": ["C4", "100", "", "0", "500", "60", "0", "100", "0", "!120",
+                "AA"],
+    "formant_chain": ["C4", "100", "g-15fa8fb-6fw25br30es20", "0", "500",
+                      "60", "0", "100", "0", "!120", "AA"],
+}
+
+
+@pytest.fixture
+def src(tmp_path, monkeypatch):
+    monkeypatch.setenv("GOOFER_TPU_TORCH_DEVICE", "cpu")
+    shutil.copy(GOLDEN / "src.wav", tmp_path / "src.wav")
+    shutil.copy(GOLDEN / "src_features.goofy",
+                tmp_path / "src_features.goofy")
+    return tmp_path / "src.wav"
+
+
+@pytest.mark.parametrize("name", sorted(BUDGET_DB))
+def test_cli_render_within_golden_budget(src, name):
+    out = src.with_name(f"out_{name}.wav")
+    assert cli.main([str(src), str(out)] + ARGS[name]) == 0
+    ours, sr = read_wav(out)
+    golden, sr_g = read_wav(GOLDEN / f"out_{name}.wav")
+    assert sr == sr_g and len(ours) == len(golden)
+    assert np.isfinite(ours).all()
+    lsd = lsd_db(np.float32(ours), np.float32(golden), sr)
+    assert lsd <= BUDGET_DB[name], lsd
+
+
+def test_cli_render_reversed_with_velocity(src):
+    out = src.with_name("out_rev.wav")
+    argv = [str(src), str(out), "D4", "140", "R1L1sd30sa20", "0", "700",
+            "60", "0", "100", "0", "!120", "ABAC#3#AD"]
+    assert cli.main(argv) == 0
+    y, sr = read_wav(out)
+    assert sr == 44100 and np.isfinite(y).all() and np.abs(y).max() > 0.1
+
+
+def test_cli_unported_modes_and_errors(src, tmp_path):
+    assert cli.main([]) == 1                                  # server
+    assert cli.main([str(tmp_path / "a.goofy")]) == 1        # editor
+    assert cli.main([str(tmp_path)]) == 1                    # folder
+    assert cli.main([str(src), "out.wav", "C4"]) == 1         # too few
+    missing = tmp_path / "other.wav"
+    shutil.copy(src, missing)
+    argv = [str(missing), str(tmp_path / "o.wav")] + ARGS["neutral"]
+    assert cli.main(argv) == 1                                # no .goofy
+    assert not (tmp_path / "o.wav").exists()
