@@ -8,16 +8,23 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure raises and the script exits nonzero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the hand-written CUDA kernel (csrc/pulse_accumulate.cu) with
-   nvcc into build/goofer_tpu_torch/ and print the build time;
-3. check the kernel against its plain PyTorch version on the card at the
-   note render's shapes (B=1, n=40000 and B=8), max |diff| <= 1e-4, and
-   time both (CUDA events, median of 20 warm calls);
-4. render the 8 golden configs through goofer_tpu_torch.cli.main on
-   CUDA from the vendored .goofy caches: each output must be finite, of
-   the golden's length and within its golden's LSD budget; the pulse
-   kernel's launch counter must rise; print the warm per-note time;
-5. print the kernel summary as one JSON line, then the device line.
+2. build the hand-written CUDA kernels (csrc/pulse_accumulate.cu and
+   csrc/one_pole_cascade.cu), one nvcc each, started together, into
+   build/goofer_tpu_torch/ and print the build time;
+3. check the pulse kernel against its plain PyTorch version on the card
+   at the note render's shapes (B=1, n=40000 and B=8), max |diff| <=
+   1e-4, and time both (CUDA events, median of 20 warm calls);
+4. check the cascade kernel the same way (B=1 and the B=2 fry pair at
+   n=40000; HP orders 1, 6 and 12, LP orders 4 and 6; a silent row must
+   give exact zeros), max |diff| <= 1e-4 x max|x|;
+5. render the 12 golden configs and the heavy 11-flag stack through
+   goofer_tpu_torch.cli.main on CUDA from the vendored .goofy caches:
+   each golden must be finite, of the golden's length and within its
+   golden's LSD budget; both kernels' launch counters must rise; print
+   each config's warm per-note time and launches per note;
+6. hold the heavy stack against the port's own CPU render of the same
+   note (it is stochastic: LSD <= max(1 dB, CPU seed-to-seed + 0.5 dB));
+7. print the kernel summary as one JSON line, then the device line.
 
 Imports nothing of JAX or goofer_tpu.
 """
@@ -38,8 +45,9 @@ import numpy as np
 import torch
 
 from goofer_tpu_torch import cli, config
-from goofer_tpu_torch.ops import pulse
-from goofer_tpu_torch.ops.cuda import pulse_kernel
+from goofer_tpu_torch.ops import pulse, scan_iir
+from goofer_tpu_torch.ops.cuda import _build, cascade_kernel, pulse_kernel
+from goofer_tpu_torch.sampler.resampler import GooferResampler
 from goofer_tpu_torch.utils.audio_io import read_wav
 from goofer_tpu_torch.utils.metrics import lsd_db
 
@@ -57,10 +65,23 @@ LSD_BUDGET_DB = {
     "voice_neutral": 0.70 + 0.5,
     "voice_shift_loop": 0.65 + 0.5,
     "voice_formants": 0.71 + 0.5,
+    "texture": 2.20 + 0.5,
+    "fry_full": 0.85 + 0.5,
+    "voice_texture": 1.38 + 0.5,
+    "voice_fry": 0.79 + 0.5,
 }
 # both sides float32, at most K terms of size <= 1: room for CUDA vs ATen
 # transcendental rounding only
 PULSE_TOL = 1e-4
+# relative to max|x|: two float32 scans of the same recurrences in other
+# association orders (the kernel's chunked carries, the plain version's
+# doubling steps); HP cascades near alpha = 1 amplify rounding
+CASCADE_TOL = 1e-4
+# the phrase bench's heavy 11-flag stack (tests/test_phrase.py), on the
+# voice source at voice_texture's geometry
+HEAVY = ("heavy_stack", "C4", 100,
+         "sh30sr30sg40su40sj20st-30vf40es30pd40fw20fsta50", 100, 900, 200,
+         0, 100, 0, "!120", "AA")
 SR = 44100
 N_CHECK = 40000
 
@@ -171,6 +192,83 @@ def check_pulse_kernel():
     return worst, timed[0], timed[1]
 
 
+def cascade_cases():
+    """(name, x (B, n), alpha (n,), order, btype) at the note render's
+    shapes and coefficient rules: the su/sj layer highpass (cutoff
+    max(f0, 120) Hz, order 6 and its doubled order-12 form), st tension
+    lowpasses, one_pole_highpass's constant coefficient, the B=2 fry
+    pair at 200 Hz and a silent row."""
+    n = N_CHECK
+    t = np.arange(n) / SR
+    rng = np.random.default_rng(1)
+    f0 = (200.0 * 2 ** (0.4 * np.sin(2 * np.pi * 2.0 * t))).astype(
+        np.float32)
+    f0[int(0.3 * n): int(0.45 * n)] = 0.0
+    # a pulse-like voiced signal with a noise floor, peak ~1
+    phase = np.cumsum(f0 / SR)
+    x = (np.sin(2 * np.pi * phase) ** 15 * 0.8
+         + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    f0_t = torch.as_tensor(f0)
+
+    def alpha(f0_track, factor, btype):
+        return scan_iir.butter_alpha(f0_track, n, SR, factor,
+                                     btype).numpy()
+
+    hp_layer = alpha(torch.clamp(f0_t, min=120.0), 1.0, "highpass")
+    rc = 1.0 / (2.0 * np.pi * 320.0)
+    const = np.full(n, rc / (rc + 1.0 / SR), dtype=np.float32)
+    pair = np.stack([x, rng.standard_normal(n).astype(np.float32) * 0.1])
+    return [
+        ("hp6_layer", x[None], hp_layer, 6, "highpass"),
+        ("hp12_layer", x[None], hp_layer, 12, "highpass"),
+        ("lp4_tension", x[None], alpha(f0_t, 2.0 - 0.3 * 0.75, "lowpass"),
+         4, "lowpass"),
+        ("lp6_tension", x[None], alpha(f0_t, (2.0 - 0.3) / 0.5, "lowpass"),
+         6, "lowpass"),
+        ("hp1_const", x[None], const, 1, "highpass"),
+        ("hp6_fry_pair", pair, alpha(torch.ones(n), 200.0, "highpass"), 6,
+         "highpass"),
+        ("silence", np.zeros((1, n), np.float32), hp_layer, 12, "highpass"),
+    ]
+
+
+def check_cascade_kernel():
+    """Kernel vs plain version on the card, every case; returns (worst
+    max |diff|, worst max |diff| / max|x|, kernel ms, plain ms), the
+    times of the order-12 layer case."""
+    cascade = cascade_kernel.one_pole_cascade
+    dev = torch.device("cuda")
+    worst = worst_rel = 0.0
+    timed = None
+    for name, x_np, alpha_np, order, btype in cascade_cases():
+        x = torch.as_tensor(x_np, device=dev)
+        alpha = torch.as_tensor(alpha_np, device=dev)
+        got = cascade(x, alpha, order, btype)
+        want = scan_iir.one_pole_cascade_plain(x, alpha, order, btype)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"cascade kernel {name}: non-finite output")
+        if name == "silence" and float(got.abs().max()) != 0.0:
+            raise AssertionError("cascade kernel silence: nonzero output")
+        err = float((got - want).abs().max())
+        rel = err / max(float(x.abs().max()), 1e-30)
+        ms = cuda_ms(lambda: cascade(x, alpha, order, btype))
+        plain_ms = cuda_ms(
+            lambda: scan_iir.one_pole_cascade_plain(x, alpha, order, btype))
+        print(f"one_pole_cascade {name}: B={x.shape[0]} n={x.shape[1]} "
+              f"order={order} {btype} max|diff|={err:.3e} "
+              f"max|diff|/max|x|={rel:.3e} kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms")
+        if not rel <= CASCADE_TOL:
+            raise AssertionError(f"cascade kernel {name}: max |diff| / "
+                                 f"max|x| {rel} > {CASCADE_TOL}")
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, rel)
+        if name == "hp12_layer":
+            timed = (ms, plain_ms)
+    return worst, worst_rel, timed[0], timed[1]
+
+
 def _golden_configs():
     spec = importlib.util.spec_from_file_location(
         "make_goldens", REPO / "tools" / "make_goldens.py")
@@ -181,9 +279,20 @@ def _golden_configs():
     return ref + voice
 
 
+# configs whose flags (su, sj, vf, st) run the cascade kernel
+CASCADE_CONFIGS = ("texture", "fry_full", "voice_texture", "voice_fry",
+                   HEAVY[0])
+
+
+def _launches():
+    return (pulse_kernel.pulse_accumulate.launches,
+            cascade_kernel.one_pole_cascade.launches)
+
+
 def render_slice(tmp: Path):
-    """Render every golden config twice through the CLI on CUDA; checks
-    the second pass's outputs and returns warm per-note seconds."""
+    """Render every golden config and the heavy stack twice through the
+    CLI on CUDA; checks the second pass's outputs and returns the warm
+    per-note seconds and (pulse, cascade) launches per note."""
     os.environ["GOOFER_TPU_TORCH_DEVICE"] = "cuda"
     for kind in ("ref", "voice"):
         src = REPO / "tests" / "golden" / kind
@@ -192,12 +301,15 @@ def render_slice(tmp: Path):
     configs = _golden_configs()
     if sorted(c[0] for _, c in configs) != sorted(LSD_BUDGET_DB):
         raise AssertionError("golden configs missing from tools/make_goldens")
+    configs.append(("voice", HEAVY))
 
     warm = {}
+    per_note = {}
     for rep in range(2):
         for kind, (name, *args) in configs:
             out = tmp / f"out_{name}.wav"
             argv = [str(tmp / f"{kind}.wav"), str(out)] + [str(a) for a in args]
+            before = _launches()
             t0 = time.perf_counter()
             rc = cli.main(argv)
             dt = time.perf_counter() - t0
@@ -206,23 +318,56 @@ def render_slice(tmp: Path):
             if rep == 0:
                 continue
             warm[name] = dt
+            per_note[name] = tuple(b - a for a, b in zip(before, _launches()))
+            if name in CASCADE_CONFIGS and per_note[name][1] == 0:
+                raise AssertionError(f"render {name}: no cascade launch")
             ours, sr = read_wav(out)
+            if not np.isfinite(ours).all():
+                raise AssertionError(f"render {name}: non-finite output")
+            note = (f"warm {dt * 1e3:.1f} ms, launches per note: pulse "
+                    f"{per_note[name][0]} cascade {per_note[name][1]}")
+            if name == HEAVY[0]:
+                print(f"render {name}: {len(ours)} samples, {note}")
+                continue
             golden, sr_g = read_wav(REPO / "tests" / "golden" / kind
                                     / f"out_{name}.wav")
             if sr != sr_g or len(ours) != len(golden):
                 raise AssertionError(f"render {name}: {len(ours)} samples "
                                      f"at {sr} Hz, golden {len(golden)}")
-            if not np.isfinite(ours).all():
-                raise AssertionError(f"render {name}: non-finite output")
             lsd = lsd_db(np.asarray(ours, np.float32),
                          np.asarray(golden, np.float32), sr)
             print(f"render {name}: {len(ours)} samples, LSD {lsd:.3f} dB "
-                  f"(budget {LSD_BUDGET_DB[name]:.2f}), warm "
-                  f"{dt * 1e3:.1f} ms")
+                  f"(budget {LSD_BUDGET_DB[name]:.2f}), {note}")
             if not lsd <= LSD_BUDGET_DB[name]:
                 raise AssertionError(f"render {name}: LSD {lsd} dB over "
                                      f"budget {LSD_BUDGET_DB[name]}")
-    return warm
+    return warm, per_note
+
+
+def check_heavy(tmp: Path):
+    """The card's heavy-stack render (render_slice) against the port's
+    CPU renders of the same note at seeds 0 and 1: same length, and LSD
+    <= max(1 dB, the CPU seed-to-seed LSD + 0.5 dB), since sh, sr and sj
+    draw noise from generators that differ between devices."""
+    name, *args = HEAVY
+    card, sr = read_wav(tmp / f"out_{name}.wav")
+    cpu = []
+    for seed in (0, 1):
+        out = tmp / f"cpu_{name}_{seed}.wav"
+        GooferResampler(tmp / "voice.wav", out, *args, seed=seed,
+                        device="cpu")
+        cpu.append(np.asarray(read_wav(out)[0], np.float32))
+    if len(card) != len(cpu[0]):
+        raise AssertionError(f"render {name}: {len(card)} samples on the "
+                             f"card, {len(cpu[0])} on the CPU")
+    floor = lsd_db(cpu[1], cpu[0], sr)
+    lsd = lsd_db(np.asarray(card, np.float32), cpu[0], sr)
+    budget = max(1.0, floor + 0.5)
+    print(f"render {name}: LSD card vs CPU {lsd:.3f} dB (CPU seed-to-seed "
+          f"{floor:.3f} dB, budget {budget:.2f})")
+    if not lsd <= budget:
+        raise AssertionError(f"render {name}: LSD {lsd} dB over budget "
+                             f"{budget}")
 
 
 def main() -> int:
@@ -234,21 +379,27 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib = pulse_kernel.build()
-    print(f"build {lib.name}: {time.perf_counter() - t0:.2f} s")
+    libs = _build.build_all([pulse_kernel.KERNEL, cascade_kernel.KERNEL])
+    print(f"build {', '.join(p.name for p in libs)}: "
+          f"{time.perf_counter() - t0:.2f} s")
 
     err, ms, plain_ms = check_pulse_kernel()
+    c_err, c_rel, c_ms, c_plain_ms = check_cascade_kernel()
 
     pulse_kernel.pulse_accumulate.launches = 0
+    cascade_kernel.one_pole_cascade.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        warm = render_slice(Path(tmp))
-    launches = pulse_kernel.pulse_accumulate.launches
+        warm, per_note = render_slice(Path(tmp))
+        launches, c_launches = _launches()
+        check_heavy(Path(tmp))
     if launches <= 0:
         raise AssertionError("the render never launched the pulse kernel")
+    if c_launches <= 0:
+        raise AssertionError("the render never launched the cascade kernel")
     print(f"render: {len(warm)} configs, warm per-note median "
           f"{statistics.median(warm.values()) * 1e3:.1f} ms, max "
-          f"{max(warm.values()) * 1e3:.1f} ms; pulse kernel launches "
-          f"{launches}")
+          f"{max(warm.values()) * 1e3:.1f} ms; kernel launches: pulse "
+          f"{launches}, cascade {c_launches}")
 
     print(json.dumps({"kernels": [{
         "name": "pulse_accumulate",
@@ -259,6 +410,18 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "one_pole_cascade",
+        "route": "cuda",
+        "source": "goofer_tpu_torch/csrc/one_pole_cascade.cu",
+        "replaces": "goofer_tpu/ops/scan_iir.py:41",
+        "note": "replaces non-Pallas JAX code: first_order_recurrence_pos, "
+                "the stage solver of dynamic_one_pole_cascade",
+        "launches": c_launches,
+        "max_abs_err": c_err,
+        "max_rel_err": c_rel,
+        "ms": c_ms,
+        "plain_ms": c_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,6 +74,12 @@ class SynthStatic:
     warp_formants: bool = False
     formant_shift_on: bool = False
     noise_transition_smoothness: float = 100.0
+    # False skips the whole aperiodic branch and returns zero noise
+    # stems.  For the su/sj layer passes, whose callers keep only the
+    # harmonic stem (SillySampler.py:1037-1081).  The peak normalization
+    # then divides by peak(harmonic) instead of upstream's
+    # peak(harmonic + the discarded noise stems), as goofer_tpu does.
+    need_noise: bool = True
     # False skips the unvoiced stem.  For the sa aperiodic layer, which
     # synthesizes with an all-ones mask: upstream gates uv by
     # (1 - smooth(mask)) (GOOFER.py:1179-1183), structurally zero there.
@@ -124,7 +130,8 @@ def _synth_body(st: SynthStatic, env_spec: torch.Tensor,
     f0 = f0_interp.float()
     mask = voicing_mask.float()
 
-    env4breath = gaussian_blur1d(env_spec, 1.75, axis=0)
+    env4breath = (gaussian_blur1d(env_spec, 1.75, axis=0)
+                  if st.need_noise else None)
 
     if st.warp_formants:
         bands = torch.as_tensor(knobs["formant_band_shifts"],
@@ -175,22 +182,26 @@ def _synth_body(st: SynthStatic, env_spec: torch.Tensor,
 
     harmonic = istft(S_harm, hop, length=n)
 
-    env_noise = match_env_frames(env4breath, t_frames)
-    phi = 2.0 * math.pi * torch.rand(env_noise.shape, generator=g_phase,
-                                     dtype=torch.float32, device=dev)
-    S_uv = torch.complex(torch.cos(phi), torch.sin(phi)) * env_noise
-    S_breath = S_uv * hp_mask
-    S_bv = gaussian_blur_complex_freq(S_breath * bright_breath, 0.5)
-    S_breath = torch.where(voiced_cols, S_bv, S_breath)
+    if st.need_noise:
+        env_noise = match_env_frames(env4breath, t_frames)
+        phi = 2.0 * math.pi * torch.rand(env_noise.shape, generator=g_phase,
+                                         dtype=torch.float32, device=dev)
+        S_uv = torch.complex(torch.cos(phi), torch.sin(phi)) * env_noise
+        S_breath = S_uv * hp_mask
+        S_bv = gaussian_blur_complex_freq(S_breath * bright_breath, 0.5)
+        S_breath = torch.where(voiced_cols, S_bv, S_breath)
 
-    aper_breath = istft(S_breath, hop, length=n)
-    mask_smooth = smooth_mask_downsampled(
-        mask, sigma=st.noise_transition_smoothness, ds=4)
-    aper_bre = aper_breath * mask_smooth * knobs["breath_strength"]
-    if st.need_uv:
-        aper_uv = (istft(S_uv, hop, length=n) * (1.0 - mask_smooth)
-                   * knobs["uv_strength"])
+        aper_breath = istft(S_breath, hop, length=n)
+        mask_smooth = smooth_mask_downsampled(
+            mask, sigma=st.noise_transition_smoothness, ds=4)
+        aper_bre = aper_breath * mask_smooth * knobs["breath_strength"]
+        if st.need_uv:
+            aper_uv = (istft(S_uv, hop, length=n) * (1.0 - mask_smooth)
+                       * knobs["uv_strength"])
+        else:
+            aper_uv = torch.zeros_like(harmonic)
     else:
+        aper_bre = torch.zeros_like(harmonic)
         aper_uv = torch.zeros_like(harmonic)
 
     if st.volume_jitter:

@@ -2,10 +2,11 @@
 
 Port of the render-path half of goofer_tpu/ops/envelope.py: the mel-knot
 decode (a dense (n_bins, K) @ (K, T) product, ref: GOOFER.py:149-168),
-the global and per-formant frequency warps, envelope smoothing /
-sharpening and frame-count matching.  The per-formant warp resamples
-each column with ``torch.gather``; goofer_tpu's banded dense-select form
-of that gather exists only to dodge a TPU gather cost and is not ported.
+the global and per-formant frequency warps, the vocal-fry compression,
+envelope smoothing / sharpening and frame-count matching.  The
+per-formant warp and the fry compression resample each column with
+``torch.gather``; goofer_tpu's banded dense-select form of that gather
+exists only to dodge a TPU gather cost and is not ported.
 """
 from __future__ import annotations
 
@@ -160,6 +161,19 @@ def env_shape(env: torch.Tensor, shape_amt: float) -> torch.Tensor:
     blur = gaussian_blur1d(env, 0.8 + 4.0 * s, axis=0)
     out = torch.clamp(env + (5.0 * s) * (env - blur), min=0.0)
     return _match_frame_means(env, out)
+
+
+def fry_env_shift(env: torch.Tensor, fry_weight_frames: torch.Tensor,
+                  shift: float = 0.92) -> torch.Tensor:
+    """Per-frame envelope compression toward low frequencies under the fry
+    mask (ref: SillySampler.py:967-996): scale s = 1 - w (1 - shift),
+    each column resampled at bin / s; frames with s == 1 are kept."""
+    n_bins = env.shape[0]
+    s = 1.0 - fry_weight_frames * (1.0 - shift)
+    bins = torch.arange(n_bins, dtype=torch.float32, device=env.device)
+    warped = gather_lerp_columns(env, bins[:, None] / s[None, :])
+    keep = torch.abs(s - 1.0) < 1e-6
+    return torch.where(keep[None, :], env, warped)
 
 
 def match_env_frames(env: torch.Tensor, target_frames: int) -> torch.Tensor:

@@ -4,15 +4,10 @@ waveform".
 Port of goofer_tpu/sampler/render_core.py (``render_note_core`` on an
 exact-length ``RenderStatic``): envelope effects, loop/velocity plan
 materialization, formant strength bells, the pitch curve, pitch-driven
-dynamics, the main synthesis, the sd dryness and sa aperiodic layers and
-the V/B/U mix.  PyTorch runs eagerly, so there is no compiled-graph
-machinery: ``RenderStatic`` carries shapes and branch toggles, scalars
-are host floats.
-
-Not yet ported (they need the time-varying one-pole cascades of
-goofer_tpu/ops/scan_iir.py): the su and sj layers, the vf/vh/vl fry
-blend and st tension.  A plan that enables any of them raises
-NotImplementedError.
+dynamics, vocal fry, the main synthesis plus the su/sj/sa layers, fry
+highpass blending, sd dryness, st tension and the V/B/U mix.  PyTorch
+runs eagerly, so there is no compiled-graph machinery: ``RenderStatic``
+carries shapes and branch toggles, scalars are host floats.
 """
 from __future__ import annotations
 
@@ -27,13 +22,13 @@ from goofer_tpu_torch.engine.synth import (
     SynthStatic,
     _synth_body,
     default_knobs,
+    make_generator,
 )
-from goofer_tpu_torch.ops.envelope import env_shape
+from goofer_tpu_torch.ops.envelope import env_shape, fry_env_shift
 from goofer_tpu_torch.ops.filters import gaussian_blur1d
 from goofer_tpu_torch.ops.interp import gather_lerp, linspace
 from goofer_tpu_torch.ops.jitter import volume_jitter
-
-SCAN_IIR_ITEM = "the ops/scan_iir.py cascade-kernel item of ROADMAP.md"
+from goofer_tpu_torch.ops.scan_iir import dynamic_butter_filter
 
 
 @dataclass(frozen=True)
@@ -65,13 +60,17 @@ class RenderStatic:
     sj_on: bool = False
     sd_on: bool = False
     tension_sign: int = 0        # -1 / 0 / +1
+    tension_order: int = 4       # LP order for tension < 0 (host-derived)
     sa_on: bool = False
     # pulse bounds, host-derived from the note's possible f0 range: K
     # most recent pulse generations per sample, and the minimum onset
     # spacing that sizes the pulse tables (see ops/pulse.py)
     max_overlap: int = config.PULSE_MAX_OVERLAP
+    growl_max_overlap: int = config.PULSE_MAX_OVERLAP
     min_spacing: int = config.PULSE_MIN_SPACING
+    growl_min_spacing: int = config.PULSE_MIN_SPACING
     subharm_min_spacing: int = 8
+    su_min_spacing: int = config.PULSE_MIN_SPACING   # su runs at f0/2
     # pre-velocity sample count (== n when vel_on is False)
     n_loop: int = 0
 
@@ -92,7 +91,11 @@ def default_scalars() -> dict:
         "pd_ref": 1.0,
         "tick_dt_samp": 1.0,
         "n_ticks": 1.0,
+        "fry_vh": 50.0,
+        "subharm_gain": 0.0,
+        "growl_mix": 0.0,
         "sd_strength": 0.0,
+        "tension": 0.0,
         "harmonic_mix": 1.0,
         "breathiness_mix": 1.0,
         "unvoiced_mix": 1.0,
@@ -109,6 +112,11 @@ def default_scalars() -> dict:
         "vel_pre_new": 1.0,
         "vel_pre_len": 1.0,
         "vel_factor": 1.0,
+        # fry curve bounds and slopes (resampler._fry_scalars); the
+        # weight and mask ramps are materialized by fry_curves
+        "fry_c0": 0.0, "fry_c1": 0.0, "fry_g0": 0.0, "fry_g1": 0.0,
+        "fry_r0": 0.0, "fry_rs": 0.0, "fry_s": 0.0, "fry_e": 0.0,
+        "fry_a1": 0.0, "fry_rin": 0.0, "fry_b0": 0.0, "fry_rout": 0.0,
     }
 
 
@@ -181,12 +189,40 @@ def velocity_positions(rs: RenderStatic, scalars, device) -> torch.Tensor:
                        (i - pre_new) + scalars["vel_pre_len"])
 
 
-def assemble_f0_mask(rs: RenderStatic, f0_cut, mask_cut, pitch_ticks,
-                     scalars):
+def _fry_mask_at(sc, pos):
+    """The faded fry-region mask at (float) sample positions
+    (ref: SillySampler.py:937-965; bounds from resampler._fry_scalars)."""
+    inside = ((pos >= sc["fry_s"]) & (pos < sc["fry_e"])).float()
+    ramp_in = torch.where(pos < sc["fry_a1"],
+                          (pos - sc["fry_s"]) * sc["fry_rin"], 1.0)
+    ramp_out = torch.where(pos >= sc["fry_b0"],
+                           1.0 - (pos - sc["fry_b0"]) * sc["fry_rout"], 1.0)
+    return inside * ramp_in * ramp_out
+
+
+def fry_curves(rs: RenderStatic, sc, device):
+    """The fry base-pitch weight, region mask and per-frame weight,
+    materialized from the 12 host-derived scalars (the reference builds
+    them as n-length arrays, SillySampler.py:883-996)."""
+    j = torch.arange(rs.n, dtype=torch.float32, device=device)
+    base_w = (((j >= sc["fry_c0"]) & (j < sc["fry_c1"])).float()
+              + torch.where((j >= sc["fry_g0"]) & (j < sc["fry_g1"]),
+                            sc["fry_r0"] + sc["fry_rs"] * (j - sc["fry_g0"]),
+                            0.0))
+    fry_mask = _fry_mask_at(sc, j)
+    centers = torch.clamp(
+        torch.arange(rs.t_env, dtype=torch.float32, device=device) * rs.hop
+        + rs.hop // 2, 0.0, max(rs.n, 1) - 1.0)
+    return base_w, fry_mask, _fry_mask_at(sc, centers)
+
+
+def assemble_f0_mask(rs: RenderStatic, f0_cut, mask_cut, fry_base_w,
+                     pitch_ticks, scalars):
     """The f0/voicing half of the render front: tick-curve
-    interpolation, loop/velocity resampling and the Hz conversion gated
-    by voicing (ref: SillySampler.py:835-855).  Returns (midi_curve,
-    f0_new, mask_new)."""
+    interpolation, loop/velocity resampling, the Hz conversion gated by
+    voicing and the fry pitch override (ref: SillySampler.py:835-855,
+    883-935).  ``fry_base_w`` is fry_curves' base weight, or None when
+    fry is off.  Returns (midi_curve, f0_new, mask_new)."""
     sc = scalars
     dev = f0_cut.device
     tick_pos = torch.clamp(
@@ -202,19 +238,34 @@ def assemble_f0_mask(rs: RenderStatic, f0_cut, mask_cut, pitch_ticks,
         f0_new = gather_lerp(f0_new, vpos, axis=0)
         mask_new = gather_lerp(mask_new, vpos, axis=0)
     hz_curve = 440.0 * 2.0 ** ((midi_curve - 69.0) / 12.0)
-    return midi_curve, mask_new * hz_curve, mask_new
+    f0_new = mask_new * hz_curve
+    if rs.fry_on:
+        fry_base = sc["fry_vh"] * (mask_new > 0).float()
+        f0_new = (1.0 - fry_base_w) * f0_new + fry_base_w * fry_base
+    return midi_curve, f0_new, mask_new
 
 
-def check_supported(rs: RenderStatic) -> None:
-    """Raise NotImplementedError for the branches this port lacks."""
-    missing = [name for name, on in (
-        ("su (sub-octave layer)", rs.su_on),
-        ("sj (growl layer)", rs.sj_on),
-        ("vf/vh/vl (vocal fry)", rs.fry_on),
-        ("st (tension)", rs.tension_sign != 0)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)} not ported yet: needs {SCAN_IIR_ITEM}")
+def _tension(rs: RenderStatic, harmonic, aper_bre, f0_new, tension, sr):
+    """st: tension (ref: SillySampler.py:1114-1140), the signed branches;
+    the pair is rescaled to its RMS before the filters."""
+    rms_before = torch.sqrt(torch.mean((harmonic + aper_bre) ** 2) + 1e-12)
+    abs_ten = abs(tension)
+    if rs.tension_sign < 0:
+        harmonic = dynamic_butter_filter(
+            harmonic, f0_new, sr, 2.0 - abs_ten * 0.75,
+            order=rs.tension_order, btype="lowpass")
+        aper_bre = dynamic_butter_filter(
+            aper_bre, f0_new, sr, abs_ten, order=4, btype="highpass")
+    else:
+        highpassed = dynamic_butter_filter(
+            harmonic, f0_new, sr, abs_ten * 4, order=4, btype="highpass")
+        harmonic = harmonic + highpassed * (1.0 + abs_ten * 20.0)
+        aper_bre = dynamic_butter_filter(
+            aper_bre, f0_new, sr, (2.0 - abs_ten) / 0.5, order=6,
+            btype="lowpass") * (1.0 - abs_ten)
+    rms_after = torch.sqrt(torch.mean((harmonic + aper_bre) ** 2) + 1e-12)
+    gain = torch.where(rms_after > 0, rms_before / rms_after, 1.0)
+    return harmonic * gain, aper_bre * gain
 
 
 def render_note_core(rs: RenderStatic,
@@ -230,13 +281,20 @@ def render_note_core(rs: RenderStatic,
     smoothed F1..F4 tracks (strength bells), ``tracks_raw`` the
     warp-anchor tracks.  ``seed`` seeds every random stream.  Returns the
     (rs.n,) float32 waveform."""
-    check_supported(rs)
     sr, n_fft, hop, n = rs.sr, rs.n_fft, rs.hop, rs.n
     sc = scalars
-    seed_main, seed_sa = np.random.SeedSequence(seed).spawn(2)
+    dev = env_cut.device
+    # the first two streams predate the layers: renders without su/sj
+    # keep their noise
+    seed_main, seed_sa, seed_su, seed_sj, seed_growl = (
+        np.random.SeedSequence(seed).spawn(5))
+
+    fry_base_w = fry_mask = fry_frame_w = None
+    if rs.fry_on:
+        fry_base_w, fry_mask, fry_frame_w = fry_curves(rs, sc, dev)
 
     midi_curve, f0_new, mask_new = assemble_f0_mask(
-        rs, f0_cut, mask_cut, pitch_ticks, sc)
+        rs, f0_cut, mask_cut, fry_base_w, pitch_ticks, sc)
 
     env = env_cut.float()
     if rs.tilt_on:
@@ -267,6 +325,11 @@ def render_note_core(rs: RenderStatic,
         vmask_s = gaussian_blur1d(mask_new, float(int(0.01 * sr)))
         dyn_gain = 1.0 + (dyn_gain - 1.0) * vmask_s
 
+    # vocal fry envelope shift (the f0 override is in assemble_f0_mask;
+    # ref: SillySampler.py:883-996)
+    if rs.fry_on:
+        env_new = fry_env_shift(env_new, fry_frame_w, 0.92)
+
     # ---- main synthesis ----------------------------------------------
     st_main = SynthStatic(
         sr=sr, n_fft=n_fft, hop=hop, n=n,
@@ -294,15 +357,63 @@ def render_note_core(rs: RenderStatic,
     _, harmonic, aper_uv, aper_bre = _synth_body(
         st_main, env_new, f0_new, mask_new, tracks_raw, knobs, seed_main)
 
+    # su and sj layer passes keep only their harmonic stem, and have no
+    # jitter or subharmonics, so the main knobs serve them unchanged
+    def layer_harmonic(f0_layer, max_overlap, min_spacing, layer_seed):
+        st_layer = SynthStatic(
+            sr=sr, n_fft=n_fft, hop=hop, n=n,
+            warp_formants=rs.warp_formants,
+            formant_shift_on=rs.formant_shift_on,
+            max_overlap=max_overlap,
+            pulse_min_spacing=min_spacing,
+            need_noise=False,
+        )
+        _, harm, _, _ = _synth_body(st_layer, env_new, f0_layer, mask_new,
+                                    tracks_raw, knobs, layer_seed)
+        # the reference's order-6 highpass applied twice with the same
+        # cutoffs is one order-12 cascade
+        return dynamic_butter_filter(harm, torch.clamp(f0_new, min=120.0),
+                                     sr, 1.0, order=12, btype="highpass")
+
+    # su: sub-octave layer (ref: SillySampler.py:1037-1059)
+    if rs.su_on:
+        harm_sub = layer_harmonic(f0_new * 0.5, rs.max_overlap,
+                                  rs.su_min_spacing, seed_su)
+        harmonic = harmonic + harm_sub * sc["subharm_gain"]
+
+    # sj: growl layer at f0/2 under per-sample log-normal pitch noise
+    # (ref: SillySampler.py:1061-1081)
+    if rs.sj_on:
+        growl = sc["growl_mix"]
+        noise = growl ** 2 * torch.randn(
+            n, generator=make_generator(seed_growl, dev),
+            dtype=torch.float32, device=dev)
+        harm_gw = layer_harmonic(f0_new * (0.5 * 2.0 ** noise),
+                                 rs.growl_max_overlap, rs.growl_min_spacing,
+                                 seed_sj)
+        harmonic = (1.0 - growl) * harmonic + growl * harm_gw
+
+    # fry: highpass blend under the fry mask (ref: SillySampler.py:1083-1099)
+    if rs.fry_on:
+        harm_hp, bre_hp = dynamic_butter_filter(
+            torch.stack([harmonic, aper_bre]), torch.ones_like(f0_new), sr,
+            200.0, order=6, btype="highpass")
+        harmonic = harmonic * (1.0 - fry_mask) + harm_hp * fry_mask
+        aper_bre = aper_bre * (1.0 - fry_mask) + bre_hp * fry_mask
+
     # sd: dryness (ref: SillySampler.py:1101-1112); the vibrato form of
     # volume_jitter draws nothing
     if rs.sd_on:
         breath_j = volume_jitter(None, n, sr, speed=150.0,
                                  strength=sc["sd_strength"] / 200.0,
-                                 vibrato=True, device=env_new.device)
+                                 vibrato=True, device=dev)
         vmask_smooth = gaussian_blur1d(mask_new, 20.0)
         aper_bre = aper_bre * (1.0 + (breath_j - 1.0) * vmask_smooth)
         aper_bre = aper_bre * (1.0 + (sc["sd_strength"] / 100.0) * 10)
+
+    if rs.tension_sign != 0:
+        harmonic, aper_bre = _tension(rs, harmonic, aper_bre, f0_new,
+                                      sc["tension"], sr)
 
     out = (harmonic * sc["harmonic_mix"]
            + aper_bre * sc["breathiness_mix"]

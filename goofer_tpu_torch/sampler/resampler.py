@@ -6,9 +6,8 @@ sanitization, the pitch curve and the pulse bounds (small NumPy work, the
 same code as goofer_tpu); the render itself (sampler/render_core.py)
 runs as PyTorch on the chosen device.
 
-Scope of this slice: features come from an existing ``.goofy`` only
-(analysis is not ported), and the su, sj, vf and st flags raise
-NotImplementedError (they need the one-pole cascades of scan_iir).
+Scope: features come from an existing ``.goofy`` only (analysis is not
+ported); every flag of the 13-argument CLI renders.
 """
 from __future__ import annotations
 
@@ -31,11 +30,7 @@ from goofer_tpu_torch.sampler.plan import (
     plan_prefix_stretch,
     plan_track_loop,
 )
-from goofer_tpu_torch.sampler.render_core import (
-    SCAN_IIR_ITEM,
-    RenderStatic,
-    render_note,
-)
+from goofer_tpu_torch.sampler.render_core import RenderStatic, render_note
 from goofer_tpu_torch.utils.audio_io import write_wav
 
 log = logging.getLogger("goofer_tpu_torch")
@@ -144,14 +139,6 @@ def acquire_features(in_file: Path, device: torch.device):
     return (np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, ylen)
 
 
-def _unsupported_flags(p: NoteParams) -> list:
-    return [name for name, on in (
-        ("su", p.subharm_gain > 0.0),
-        ("sj", p.growl_mix > 0.0),
-        ("vf", p.fry_amount != 0.0),
-        ("st", p.tension != 0.0)) if on]
-
-
 class GooferResampler:
     """13-positional-arg UTAU resampler (ref: SillySampler.py:286-306).
 
@@ -204,11 +191,6 @@ class GooferResampler:
         arrays, scalars) for render_core.render_note; the arrays are the
         ones goofer_tpu's prepare() builds for an exact-length plan."""
         p = self.params
-        missing = _unsupported_flags(p)
-        if missing:
-            raise NotImplementedError(
-                f"flag(s) {', '.join(missing)} not ported yet: "
-                f"needs {SCAN_IIR_ITEM}")
         hop = self.hop
         sample_len_sec = ylen / sr
 
@@ -327,18 +309,41 @@ class GooferResampler:
                                   float(max(1, int(0.010 * sr))))
             pd_ref = float(np.percentile(np.abs(bend), 95.0) + 1e-8)
 
+        # --- fry weights and tension ------------------------------------
+        vf = min(100.0, max(-100.0, float(p.fry_amount)))
+        fry_on = vf != 0.0
+        fry_sc = _fry_scalars(n_total, sr, vf, p.fry_glide_pct)
+        tension_sign = 0 if p.tension == 0 else (1 if p.tension > 0 else -1)
+        tension_order = int(min(6, max(1, round(1 + abs(p.tension) * 4))))
+
         # --- pulse bounds from the f0 range this note can produce -------
         # longest pulse ~ sr/f0_floor samples, onsets up to f0_ceil/sr per
         # sample, pulses are zero past u = Ra + Rk*(1-Ra) ~= 0.804
         hz_lo = float(440.0 * 2.0 ** ((np.min(midi_curve) - 69.0) / 12.0))
         hz_hi = float(440.0 * 2.0 ** ((np.max(midi_curve) - 69.0) / 12.0))
+        floor_cands = [hz_lo, config.PULSE_FALLBACK_F0]
+        ceil_cands = [hz_hi, config.PULSE_FALLBACK_F0]
+        if fry_on:
+            floor_cands.append(p.fry_base_hz)
+            ceil_cands.append(p.fry_base_hz)
         jit_lo = max(0.25, 1.0 - p.f0_jitter_strength) if p.f0_jitter else 1.0
         jit_hi = (1.0 + p.f0_jitter_strength) if p.f0_jitter else 1.0
-        f0_floor = max(1.0, min(hz_lo, config.PULSE_FALLBACK_F0) * jit_lo)
-        f0_ceil = max(hz_hi, config.PULSE_FALLBACK_F0) * jit_hi
+        f0_floor = max(1.0, min(floor_cands) * jit_lo)
+        f0_ceil = max(ceil_cands) * jit_hi
+        ratio = f0_ceil / f0_floor
         max_overlap = config.bucket_overlap(int(min(32, max(
-            3, math.ceil(0.804 * f0_ceil / f0_floor) + 2))))
+            3, math.ceil(0.804 * ratio) + 2))))
+        # growl layer: f0 * 0.5 * 2**N(0, mix^2); its spread is bounded at
+        # 3 sigma each way (tails only lose low-amplitude pulse ends)
+        spread = 2.0 ** (6.0 * p.growl_mix ** 2) if p.growl_mix > 0 else 1.0
+        growl_max_overlap = config.bucket_overlap(int(min(32, max(
+            3, math.ceil(0.804 * ratio * spread) + 2))))
         min_spacing = config.bucket_min_spacing(int(sr / max(f0_ceil, 1.0)))
+        growl_min_spacing = config.bucket_min_spacing(int(sr / max(
+            f0_ceil * 0.5 * spread, 1.0)))
+        # su layer: f0/2, so onsets are twice as sparse
+        su_min_spacing = config.bucket_min_spacing(int(sr / max(
+            f0_ceil * 0.5, 1.0)))
         # subharmonic layer: semitones=12 (2x) under a depth-3 vibrato
         # (peak f0 x (1 + depth)), hardcoded at the main synth call
         subharm_min_spacing = config.bucket_min_spacing(int(sr / max(
@@ -352,16 +357,24 @@ class GooferResampler:
             vel_on=vel_on,
             strengths_on=any(abs(s) > 1e-6 for s in p.formant_strengths),
             pd_on=p.pitch_dyn != 0.0,
+            fry_on=fry_on,
             f0_jitter=p.f0_jitter,
             volume_jitter=p.volume_jitter,
             add_subharm=p.add_subharm,
             warp_formants=any(s != 1.0 for s in p.f_shifts),
             formant_shift_on=p.formant_shift != 1.0,
+            su_on=p.subharm_gain > 0.0,
+            sj_on=p.growl_mix > 0.0,
             sd_on=p.sd_strength > 0,
+            tension_sign=tension_sign,
+            tension_order=tension_order,
             sa_on=p.aperiodic_mix > 0.0,
             max_overlap=max_overlap,
+            growl_max_overlap=growl_max_overlap,
             min_spacing=min_spacing,
+            growl_min_spacing=growl_min_spacing,
             subharm_min_spacing=subharm_min_spacing,
+            su_min_spacing=su_min_spacing,
             n_loop=n_loop,
         )
 
@@ -393,7 +406,11 @@ class GooferResampler:
             "pd_ref": pd_ref,
             "tick_dt_samp": tick_dt * sr,
             "n_ticks": float(n_ticks),
+            "fry_vh": p.fry_base_hz,
+            "subharm_gain": p.subharm_gain,
+            "growl_mix": p.growl_mix,
             "sd_strength": p.sd_strength,
+            "tension": p.tension,
             "harmonic_mix": p.harmonic_mix,
             "breathiness_mix": p.breathiness_mix,
             "unvoiced_mix": p.unvoiced_mix,
@@ -406,5 +423,75 @@ class GooferResampler:
             "vel_pre_new": float(vel_pre_new if vel_samp_on else 1),
             "vel_pre_len": float(pre_samples if vel_samp_on else 1),
             "vel_factor": float(vel if vel_samp_on else 1.0),
+            **fry_sc,
         }
         return rs, arrays, scalars
+
+
+def _fry_scalars(n: int, sr: int, vf: float, vl: float) -> dict:
+    """Exact integer region bounds and ramp slopes of the fry weight and
+    mask curves (ref: SillySampler.py:883-965), for
+    render_core.fry_curves; all zero when ``vf`` is 0.
+
+    base_w: 1 on [c0, c1), r0 + rs*(j - g0) on [g0, g1), else 0.
+    fry_mask: on [s, e): ramp-in (j - s)*rin for j < a1 (else 1) times
+    ramp-out 1 - (j - b0)*rout for j >= b0 (else 1)."""
+    c0 = c1 = g0 = g1 = 0
+    r0 = rs_ = 0.0
+    if vf > 0:
+        L = int(round(n * (vf / 100.0)))
+        if L > 0:
+            glide = min(L, max(0, int(round(L * (vl / 100.0)))))
+            const = L - glide
+            c0, c1 = 0, const
+            if glide > 0:
+                # base_w = 1 - linspace(0, 1, glide)
+                g0, g1 = const, L
+                r0 = 1.0
+                rs_ = -1.0 / (glide - 1) if glide > 1 else 0.0
+    elif vf < 0:
+        L = int(round(n * (abs(vf) / 100.0)))
+        if L > 0:
+            glide = min(L, max(0, int(round(L * (vl / 100.0)))))
+            const = L - glide
+            start = n - L
+            if glide > 0:
+                # base_w = 1 - linspace(1, 0, glide)
+                g0, g1 = start, start + glide
+                r0 = 0.0
+                rs_ = 1.0 / (glide - 1) if glide > 1 else 0.0
+            if const > 0:
+                c0, c1 = start + glide, n
+
+    # faded region mask, sized from the note midpoint
+    # (ref: SillySampler.py:937-965)
+    s_i = e_i = a1 = b0 = 0
+    rin = rout = 0.0
+    if vf != 0:
+        mid = n // 2
+        if vf > 0:
+            L2 = int(round(mid * (vf / 100.0)))
+            s_i, e_i = 0, max(0, min(n, L2))
+        else:
+            L2 = int(round((n - mid) * (abs(vf) / 100.0)))
+            s_i, e_i = max(0, n - L2), n
+        a1, b0 = s_i, e_i
+        if e_i > s_i:
+            fade = int(0.01 * sr)
+            if fade > 0:
+                a1 = min(e_i, s_i + fade)
+                if a1 - s_i > 1:
+                    rin = 1.0 / (a1 - s_i - 1)
+                b0 = max(s_i, e_i - fade)
+                if e_i - b0 > 1:
+                    rout = 1.0 / (e_i - b0 - 1)
+        else:
+            s_i = e_i = 0
+    return {
+        "fry_c0": float(c0), "fry_c1": float(c1),
+        "fry_g0": float(g0), "fry_g1": float(g1),
+        "fry_r0": float(r0), "fry_rs": float(rs_),
+        "fry_s": float(s_i), "fry_e": float(e_i),
+        "fry_a1": float(a1), "fry_rin": float(rin),
+        "fry_b0": float(b0), "fry_rout": float(rout),
+    }

@@ -1,4 +1,4 @@
-"""The Hopper pulse kernel against its plain version, on the card.
+"""The Hopper kernels against their plain versions, on the card.
 
 Marked ``cuda``: these skip without a CUDA device.  Run them on the
 machine with the card (``--noconftest``: tests/conftest.py imports JAX,
@@ -6,16 +6,19 @@ which that machine does not have):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance 1e-4: both sides are float32 and the sum holds at most K terms
-of size <= 1, so it leaves room only for CUDA vs ATen transcendental
-rounding."""
+Pulse tolerance 1e-4: both sides are float32 and the sum holds at most K
+terms of size <= 1, so it leaves room only for CUDA vs ATen
+transcendental rounding.  Cascade tolerance 1e-4 x max|x|: two float32
+scans of the same recurrences in other association orders."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from goofer_tpu_torch.ops import pulse  # noqa: E402
+from chip_smoke import CASCADE_TOL, cascade_cases  # noqa: E402
+from goofer_tpu_torch.ops import pulse, scan_iir  # noqa: E402
+from goofer_tpu_torch.ops.cuda.cascade_kernel import one_pole_cascade  # noqa: E402
 from goofer_tpu_torch.ops.cuda.pulse_kernel import pulse_accumulate  # noqa: E402
 from goofer_tpu_torch.sampler import render_core  # noqa: E402
 from goofer_tpu_torch.sampler.resampler import GooferResampler  # noqa: E402
@@ -80,7 +83,53 @@ def test_wrapper_rejects_bad_inputs(dev):
                          True, 8)
 
 
-@pytest.mark.parametrize("cfg_id", ["env-fx", "loops-concat", "subharm"])
+@pytest.mark.parametrize("case", cascade_cases(), ids=lambda c: c[0])
+def test_cascade_kernel_matches_plain(dev, case):
+    """chip_smoke.py's cases: the note render's shapes and coefficients."""
+    name, x_np, alpha_np, order, btype = case
+    x = torch.as_tensor(x_np, device=dev)
+    alpha = torch.as_tensor(alpha_np, device=dev)
+    before = one_pole_cascade.launches
+    got = one_pole_cascade(x, alpha, order, btype)
+    want = scan_iir.one_pole_cascade_plain(x, alpha, order, btype)
+    torch.cuda.synchronize()
+    assert one_pole_cascade.launches == before + 1
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    if name == "silence":
+        assert float(got.abs().max()) == 0.0
+    else:
+        tol = CASCADE_TOL * float(x.abs().max())
+        torch.testing.assert_close(got, want, atol=tol, rtol=0.0)
+
+
+def test_cascade_per_row_alpha(dev):
+    """(B, n) coefficients: each row filtered with its own."""
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal((3, 5000)).astype(np.float32),
+                        device=dev)
+    alpha = torch.as_tensor(rng.uniform(0.9, 0.999, (3, 5000)).astype(
+        np.float32), device=dev)
+    got = one_pole_cascade(x, alpha, 5, "highpass")
+    want = scan_iir.one_pole_cascade_plain(x, alpha, 5, "highpass")
+    torch.testing.assert_close(got, want, atol=1e-4 * float(x.abs().max()),
+                               rtol=0.0)
+
+
+def test_cascade_wrapper_rejects_bad_inputs(dev):
+    x = torch.ones((2, 64), device=dev)
+    alpha = torch.full((64,), 0.9, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        one_pole_cascade(x.t().contiguous().t(), alpha, 2, "highpass")
+    with pytest.raises(ValueError, match="float32"):
+        one_pole_cascade(x.double(), alpha, 2, "highpass")
+    with pytest.raises(ValueError, match="alpha"):
+        one_pole_cascade(x, alpha.double(), 2, "lowpass")
+    with pytest.raises(ValueError, match=r"\(B, n\)"):
+        one_pole_cascade(x, alpha[:10], 2, "lowpass")
+
+
+@pytest.mark.parametrize("cfg_id", ["env-fx", "loops-concat", "subharm",
+                                    "fry-pd-st", "layers"])
 def test_render_on_card_matches_cpu(dev, cfg_id):
     """The whole deterministic note chain (noise stems zeroed, P0) on the
     card against the same port on the CPU: cuFFT, cuDNN and CUDA math
@@ -97,9 +146,12 @@ def test_render_on_card_matches_cpu(dev, cfg_id):
         NOTE_ARGS["tempo"], ps, device="cpu", autorender=False)
     rs, arrays, sc = r.prepare(*make_synth_features())
     sc = dict(sc, uv_strength=0.0, breath_strength=0.0)
-    before = pulse_accumulate.launches
+    before = pulse_accumulate.launches, one_pole_cascade.launches
     gpu = render_core.render_note(rs, arrays, sc, 0, dev).cpu().numpy()
-    assert pulse_accumulate.launches > before
+    assert pulse_accumulate.launches > before[0]
+    # fry-pd-st: fry blend + st; layers: su + st
+    uses_cascade = cfg_id in ("fry-pd-st", "layers")
+    assert (one_pole_cascade.launches > before[1]) == uses_cascade
     cpu = render_core.render_note(rs, arrays, sc, 0, "cpu").numpy()
     assert gpu.shape == cpu.shape and np.isfinite(gpu).all()
     d = np.abs(gpu - cpu) / (np.abs(cpu).max() + 1e-12)

@@ -4,7 +4,8 @@ The same seeded NumPy inputs go through the JAX function and its port.
 Tolerances: interpolation, filters, envelope transforms and the
 deterministic jitter forms are float32 elementwise chains (atol 1e-5);
 the STFT/iSTFT sum in another FFT order (1e-4 x peak); the knot decode
-is a float32 matrix product followed by exp (rtol 1e-5)."""
+is a float32 matrix product followed by exp, held with both sides to the
+float64 result within float32's rounding bound (~1.5e-6 relative)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -126,14 +127,37 @@ def test_istft_matches_jax(n):
     _close(got, want, atol=1e-4 * np.abs(want).max())
 
 
-def test_decode_env_from_knots():
+def test_decode_env_from_knots(monkeypatch):
+    """Both sides against the exact exp(W @ k) in float64, and against
+    each other.  Each row of W holds two non-zero weights, so a float32
+    evaluation is off by at most 2u sum|w k| in the log envelope (two
+    rounded products and one add, u = 2^-24) plus a few ulp of exp: the
+    bound below, ~1.5e-6 relative here.  goofer_tpu's matmul dtype and
+    precision are pinned to float32 / highest."""
+    from goofer_tpu import config as j_config
+
+    monkeypatch.setattr(j_config, "ENVELOPE_MATMUL_DTYPE", "float32")
     rng = np.random.default_rng(6)
     knots = rng.normal(-4.0, 1.0, (48, 90)).astype(np.float16)
-    got = envelope.decode_env_from_knots(
-        torch.as_tensor(knots.astype(np.float32)), SR, 1024, 513)
-    want = j_env.decode_env_from_knots(
-        jnp.asarray(knots, dtype=jnp.float32), SR, 1024, 513)
-    _close(got, want, atol=0.0, rtol=1e-5)
+    k32 = knots.astype(np.float32)
+    got = envelope.decode_env_from_knots(torch.as_tensor(k32), SR, 1024,
+                                         513).numpy()
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(j_env.decode_env_from_knots(
+            jnp.asarray(k32), SR, 1024, 513))
+    w = envelope._decode_matrix(SR, 1024, 48).astype(np.float64)
+    exact = np.exp(w @ k32.astype(np.float64))[:513]
+    u = 2.0 ** -24
+    bound = 2 * u * float((np.abs(w) @ np.abs(k32)).max()) + 8 * u
+    err_port = float(np.max(np.abs(got / exact - 1.0)))
+    err_jax = float(np.max(np.abs(want / exact - 1.0)))
+    err_pair = float(np.max(np.abs(got / want - 1.0)))
+    msg = (f"max relative error: port {err_port:.3e}, goofer_tpu "
+           f"{err_jax:.3e} (vs float64; bound {bound:.3e}), port vs "
+           f"goofer_tpu {err_pair:.3e} (bound {2 * bound:.3e})")
+    assert got.shape == want.shape == (513, 90), msg
+    assert err_port <= bound and err_jax <= bound, msg
+    assert err_pair <= 2 * bound, msg
 
 
 def _env(seed=7, t=60):

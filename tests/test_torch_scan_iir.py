@@ -1,0 +1,159 @@
+"""goofer_tpu_torch's one-pole cascades and fry envelope shift vs
+goofer_tpu's, and both against the reference loops, on the CPU.
+
+The same seeded NumPy inputs go through the JAX function, its port (the
+cascade kernel's plain version on CPU tensors) and the float64 loops of
+tests/oracles.py.  Tolerances: the reference suite's rtol 5e-3 / atol
+1e-4 against the loops (tests/test_ops.py: float32 recurrences in
+another association order; HP cascades near alpha = 1 amplify rounding);
+port vs JAX rtol 1e-3 / atol 2e-5, two float32 scans of the same
+recurrences; the fry shift is a float32 lerp (atol 2e-6, the banded-vs-
+gather equivalence of tests/test_envelope.py)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from goofer_tpu.ops import envelope as j_env  # noqa: E402
+from goofer_tpu.ops import scan_iir as j_scan  # noqa: E402
+from goofer_tpu_torch.ops import envelope, scan_iir  # noqa: E402
+from goofer_tpu_torch.ops.cuda.cascade_kernel import one_pole_cascade  # noqa: E402
+from tests import oracles as o  # noqa: E402
+
+SR = 44100
+
+
+def _signal(seed, n, voiced=0.7):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    f0 = np.where(rng.random(n) < voiced,
+                  220.0 + 50 * np.sin(np.arange(n) / 200), 0.0)
+    return x, f0.astype(np.float32)
+
+
+def _jax_butter(x, f0, factor, order, btype):
+    """goofer_tpu's filter; order 12 is its order 6 applied twice, as
+    the su and sj layers call it."""
+    y = jnp.asarray(x)
+    for part in ((6, 6) if order == 12 else (order,)):
+        y = j_scan.dynamic_butter_filter(y, jnp.asarray(f0), SR, factor,
+                                         order=part, btype=btype)
+    return np.asarray(y)
+
+
+def _oracle_butter(x, f0, factor, order, btype):
+    y = x
+    for part in ((6, 6) if order == 12 else (order,)):
+        y = o.o_dynamic_butter(y, f0, SR, factor, part, btype)
+    return y
+
+
+@pytest.mark.parametrize("btype", ["lowpass", "highpass"])
+@pytest.mark.parametrize("order", [1, 4, 6, 12])
+def test_dynamic_butter_matches_jax_and_loop(btype, order):
+    x, f0 = _signal(order, 2000)
+    got = scan_iir.dynamic_butter_filter(torch.as_tensor(x),
+                                         torch.as_tensor(f0), SR, 1.5,
+                                         order=order, btype=btype).numpy()
+    assert got.dtype == np.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got, _oracle_butter(x, f0, 1.5, order, btype),
+                               rtol=5e-3, atol=1e-4)
+    np.testing.assert_allclose(got, _jax_butter(x, f0, 1.5, order, btype),
+                               rtol=1e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("btype,factor", [("highpass", 200.0),
+                                          ("lowpass", 300.0)])
+def test_dynamic_butter_unvoiced_constant_cutoff(btype, factor):
+    """No voiced sample: the raw factor is the cutoff in Hz, unsmoothed
+    (the fry blend's form)."""
+    x, _ = _signal(3, 800)
+    f0 = np.zeros(800, np.float32)
+    got = scan_iir.dynamic_butter_filter(torch.as_tensor(x),
+                                         torch.as_tensor(f0), SR, factor,
+                                         order=6, btype=btype).numpy()
+    np.testing.assert_allclose(got, o.o_dynamic_butter(
+        x, f0, SR, factor, 6, btype), rtol=5e-3, atol=1e-4)
+    np.testing.assert_allclose(got, _jax_butter(x, f0, factor, 6, btype),
+                               rtol=1e-3, atol=2e-5)
+
+
+def test_dynamic_butter_resamples_f0_and_stacks_rows():
+    """A short f0 track is resampled to the signal; a (B, n) stack shares
+    it, each row filtered as on its own."""
+    x, _ = _signal(4, 1500)
+    x2 = np.stack([x, x[::-1].copy()])
+    f0 = (180.0 + 40 * np.sin(np.arange(37) / 5.0)).astype(np.float32)
+    got = scan_iir.dynamic_butter_filter(torch.as_tensor(x2),
+                                         torch.as_tensor(f0), SR, 2.0,
+                                         order=4, btype="highpass").numpy()
+    for row in range(2):
+        want = np.asarray(j_scan.dynamic_butter_filter(
+            jnp.asarray(x2[row]), jnp.asarray(f0), SR, 2.0, order=4,
+            btype="highpass"))
+        np.testing.assert_allclose(got[row], want, rtol=1e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("fc", [300.0, 40.0])
+def test_one_pole_highpass(fc):
+    x, _ = _signal(5, 3000)
+    got = scan_iir.one_pole_highpass(torch.as_tensor(x), SR, fc).numpy()
+    np.testing.assert_allclose(got, o.o_one_pole_hp(x, SR, fc),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(
+        got, np.asarray(j_scan.one_pole_highpass(jnp.asarray(x), SR, fc)),
+        rtol=1e-3, atol=2e-5)
+    assert not scan_iir.one_pole_highpass(torch.as_tensor(x), SR,
+                                          0.0).any()
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 1025])
+def test_cascade_plain_short_rows(n):
+    """The doubling scan at lengths around its power-of-two steps
+    against the sequential recurrence."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    alpha = rng.uniform(0.5, 0.99, n).astype(np.float32)
+    for btype in ("lowpass", "highpass"):
+        got = one_pole_cascade(torch.as_tensor(x), torch.as_tensor(alpha),
+                               3, btype).numpy()
+        want = x.astype(np.float64)
+        for _ in range(3):
+            y = np.zeros_like(want)
+            prev = np.zeros(2)
+            x_prev = want[:, 0].copy()
+            for i in range(n):
+                if btype == "lowpass":
+                    prev = prev + alpha[i] * (want[:, i] - prev)
+                else:
+                    prev = alpha[i] * (prev + want[:, i] - x_prev)
+                    x_prev = want[:, i]
+                y[:, i] = prev
+            want = y
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_cascade_wrapper_cpu_counts_no_launch():
+    before = one_pole_cascade.launches
+    x = torch.zeros((1, 64))
+    out = one_pole_cascade(x, torch.full((64,), 0.9), 12, "highpass")
+    assert out.shape == (1, 64) and not out.any()
+    assert one_pole_cascade.launches == before
+    with pytest.raises(ValueError, match="btype"):
+        one_pole_cascade(x, torch.full((64,), 0.9), 2, "bandpass")
+
+
+@pytest.mark.parametrize("t", [1, 40])
+def test_fry_env_shift_matches_jax(t):
+    rng = np.random.default_rng(8)
+    env = rng.random((513, t)).astype(np.float32)
+    w = np.clip(rng.uniform(-0.3, 1.2, t), 0.0, 1.0).astype(np.float32)
+    w[: t // 3] = 0.0     # frames outside the fry region stay as they are
+    got = envelope.fry_env_shift(torch.as_tensor(env), torch.as_tensor(w),
+                                 0.92).numpy()
+    want = np.asarray(j_env.fry_env_shift(jnp.asarray(env), jnp.asarray(w),
+                                          0.92))
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0.0)
+    np.testing.assert_array_equal(got[:, : t // 3], env[:, : t // 3])

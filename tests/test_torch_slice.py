@@ -38,12 +38,12 @@ from tests.test_resample_oracle import (  # noqa: E402
     _layer_f0s,
 )
 
-SLICE_IDS = ("env-fx", "loops-concat", "subharm")
+SLICE_IDS = ("env-fx", "loops-concat", "subharm", "fry-pd-st", "layers")
 SLICE_CONFIGS = [c for c in DET_CONFIGS if c[0] in SLICE_IDS]
-# every DET config the port supports (no su/sj/vf/st): host planning only
-PLAN_CONFIGS = [c for c in DET_CONFIGS
-                if c[0] in ("env-fx", "loops-vel", "loops-avg",
-                            "loops-concat", "subharm")]
+# host planning: every DET config
+PLAN_CONFIGS = DET_CONFIGS
+# the heavy 11-flag stack of the phrase bench (tests/test_phrase.py)
+HEAVY_FLAGS = "sh30sr30sg40su40sj20st-30vf40es30pd40fw20fsta50"
 
 
 @pytest.fixture(scope="module")
@@ -100,8 +100,11 @@ def test_render_matches_jax_deterministic(features, cfg_id, pitch, velocity,
 
     f0_j, mask_j = _device_f0_mask(*jplan)
     rs_t, tensors, sc_t = tplan
+    # the fry-overridden f0 each pulse layer integrates
+    base_w = (render_core.fry_curves(rs_t, sc_t, "cpu")[0] if rs_t.fry_on
+              else None)
     _, f0_t, mask_t = render_core.assemble_f0_mask(
-        rs_t, tensors["f0_cut"], tensors["mask_cut"],
+        rs_t, tensors["f0_cut"], tensors["mask_cut"], base_w,
         tensors["pitch_ticks"], sc_t)
     f0_t, mask_t = f0_t.numpy(), mask_t.numpy()
     np.testing.assert_allclose(f0_t, f0_j, atol=1e-2)
@@ -114,9 +117,10 @@ def test_render_matches_jax_deterministic(features, cfg_id, pitch, velocity,
         vib_j = np.asarray(j_subharm_vibrato(
             jnp.asarray(f0_j), SR, jnp.float32(75.0), jnp.float32(3.0),
             0.01))
+    su_on = rs_t.su_on
     keep = _flip_exclusion_mask(
-        _layer_f0s(f0_t, mask_t, False, sg_on, SR, vib_t),
-        _layer_f0s(f0_j, mask_j, False, sg_on, SR, vib_j), f0_j, SR, n)
+        _layer_f0s(f0_t, mask_t, su_on, sg_on, SR, vib_t),
+        _layer_f0s(f0_j, mask_j, su_on, sg_on, SR, vib_j), f0_j, SR, n)
     assert keep.mean() > min_keep, keep.mean()
 
     peak = float(np.max(np.abs(out_j)) + 1e-12)
@@ -128,13 +132,14 @@ def test_render_matches_jax_deterministic(features, cfg_id, pitch, velocity,
     assert lsd_db(out_t, out_j, SR, N_FFT, HOP) < 0.1
 
 
-@pytest.mark.parametrize("flags", ["", "sh30sr30"])
+@pytest.mark.parametrize("flags", ["", "sh30sr30", "sj20", HEAVY_FLAGS])
 def test_render_matches_jax_stochastic(features, flags):
-    """Noise stems on (and for sh30sr30 pitch and volume jitter), drawn
-    from different RNGs: parity is spectral.  The budget is 1 dB, or
-    goofer_tpu's own seed-to-seed distance + 0.5 dB where that floor is
-    higher (the golden suite's protocol): sh30sr30 measures 1.33-1.49 dB
-    between two goofer_tpu seeds on this note."""
+    """Noise stems on (and for sh30sr30 pitch and volume jitter, for sj20
+    the growl layer's pitch noise), drawn from different RNGs: parity is
+    spectral.  The budget is 1 dB, or goofer_tpu's own seed-to-seed
+    distance + 0.5 dB where that floor is higher (the golden suite's
+    protocol): sh30sr30 measures 1.33-1.49 dB between two goofer_tpu
+    seeds on this note."""
     args = _args("C4", 100, flags, "AA", 420)
     out_t, out_j, (rs, arrays, sc), _ = _render_both(features, args,
                                                      uv0=False)
