@@ -13,18 +13,31 @@ Phases (any failure raises and the script exits nonzero):
    build/goofer_tpu_torch/ and print the build time;
 3. check the pulse kernel against its plain PyTorch version on the card
    at the note render's shapes (B=1, n=40000 and B=8), max |diff| <=
-   1e-4, and time both (CUDA events, median of 20 warm calls);
+   1e-4, and time both;
 4. check the cascade kernel the same way (B=1 and the B=2 fry pair at
-   n=40000; HP orders 1, 6 and 12, LP orders 4 and 6; a silent row must
-   give exact zeros), max |diff| <= 1e-4 x max|x|;
+   n=40000; HP orders 1, 6 and 12, LP orders 4 and 6; the order-12 layer
+   at n=48510, the longest note, and 262144; a silent row must give exact
+   zeros), max |diff| <= 1e-4 x max|x|, and cross-check one kernel time
+   against torch.profiler's device time;
 5. render the 12 golden configs and the heavy 11-flag stack through
    goofer_tpu_torch.cli.main on CUDA from the vendored .goofy caches:
    each golden must be finite, of the golden's length and within its
-   golden's LSD budget; both kernels' launch counters must rise; print
-   each config's warm per-note time and launches per note;
+   golden's LSD budget; both kernels' launch counters must rise, 5
+   cascade launches per heavy note; print each config's warm per-note
+   time and launches per note;
 6. hold the heavy stack against the port's own CPU render of the same
    note (it is stochastic: LSD <= max(1 dB, CPU seed-to-seed + 0.5 dB));
-7. print the kernel summary as one JSON line, then the device line.
+7. profile 5 warm heavy-stack renders under torch.profiler: device busy
+   ms, idle share, device kernels per note, the cascade kernel's device
+   ms per note and its share of device busy;
+8. print the kernel summary as one JSON line, then the device line.
+
+Kernel times are device time per launch: a run of ``TIMED_REPS``
+launches between one pair of CUDA events, enqueued behind a spin kernel
+(torch.cuda._sleep) so that the device never waits on the Python
+wrapper.  Each kernel's bound is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, the H100 SXM's published peaks.
 
 Imports nothing of JAX or goofer_tpu.
 """
@@ -74,16 +87,33 @@ LSD_BUDGET_DB = {
 # transcendental rounding only
 PULSE_TOL = 1e-4
 # relative to max|x|: two float32 scans of the same recurrences in other
-# association orders (the kernel's chunked carries, the plain version's
-# doubling steps); HP cascades near alpha = 1 amplify rounding
+# association orders (the kernel's cluster scan of run maps, the plain
+# version's doubling steps); HP cascades near alpha = 1 amplify rounding
 CASCADE_TOL = 1e-4
 # the phrase bench's heavy 11-flag stack (tests/test_phrase.py), on the
 # voice source at voice_texture's geometry
 HEAVY = ("heavy_stack", "C4", 100,
          "sh30sr30sg40su40sj20st-30vf40es30pd40fw20fsta50", 100, 900, 200,
          0, 100, 0, "!120", "AA")
+HEAVY_CASCADE_LAUNCHES = 5
 SR = 44100
 N_CHECK = 40000
+# the voice source's notes, the longest on the main path
+N_LONG = 48510
+# launches per kernel timing; the plain versions run tens to thousands of
+# small ops per call and get fewer
+TIMED_REPS = 100
+PLAIN_REPS = 10
+# ~10 ms of device spin ahead of each timed run, longer than the host
+# takes to enqueue it (checked)
+SPIN_CYCLES = 20_000_000
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# float32 operations per live (sample, onset) pair of the pulse kernel:
+# the phase division and tests, one sinf or expf + cosf (about 20 each
+# with range reduction), the normalising division and the add
+PULSE_OPS_PER_PAIR = 30
 
 
 def card_line() -> str:
@@ -94,19 +124,64 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` warm calls, timed with CUDA events."""
+def cuda_ms(fn, reps: int = TIMED_REPS, gap_free: bool = True) -> float:
+    """Device ms per call of ``fn``: ``reps`` warm calls between one pair
+    of CUDA events, enqueued behind a spin kernel.  With ``gap_free`` it
+    raises if the host took longer to enqueue them than the spin lasted,
+    since the device would then have waited on the host."""
     fn()
-    times = []
+    torch.cuda.synchronize()
+    spin, start, stop = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        stop.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    torch.cuda.synchronize()
+    spin_ms = spin.elapsed_time(start)
+    if gap_free and not host_ms < spin_ms:
+        raise AssertionError(f"enqueueing {reps} calls took {host_ms:.2f} "
+                             f"ms, longer than the {spin_ms:.2f} ms spin: "
+                             "the device waited on the host")
+    return start.elapsed_time(stop) / reps
+
+
+def device_events(prof):
+    """The profile's device-side events (kernels, copies, memsets)."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return events
+
+
+def profiler_ms(fn, kernel: str, reps: int = TIMED_REPS) -> float:
+    """Mean device time of ``kernel`` per call of ``fn`` from
+    torch.profiler, the cross-check of cuda_ms."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    times = [e.time_range.elapsed_us() for e in device_events(prof)
+             if kernel in e.name]
+    if len(times) != reps:
+        raise AssertionError(f"torch.profiler saw {len(times)} launches of "
+                             f"{kernel}, expected {reps}")
+    return sum(times) / reps / 1e3
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time for the work on an H100 SXM, and what bounds it."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _pulse_cases():
@@ -135,9 +210,26 @@ def _pulse_cases():
     return cases
 
 
+def _pulse_live_pairs(row, pos_tab, t0_tab, max_overlap) -> int:
+    """(sample, onset row) pairs the pulse kernel evaluates on this data:
+    j = row - k for k < K inside the table, with 0 <= i - pos[j] < T0[j]."""
+    n = row.shape[-1]
+    t = torch.arange(n, device=row.device, dtype=torch.float32)
+    live = 0
+    for k in range(max_overlap):
+        j = row.long() - k
+        ok = (j >= 0) & (j < pos_tab.shape[-1])
+        j = j.clamp(0, pos_tab.shape[-1] - 1)
+        offs = t - torch.gather(pos_tab, 1, j)
+        ok &= (offs >= 0) & (offs < torch.gather(t0_tab, 1, j))
+        live += int(ok.sum())
+    return live
+
+
 def check_pulse_kernel():
-    """Kernel vs plain version on the card, every case; returns (worst
-    max |diff|, kernel ms, plain ms), the times of the B=1 glide case."""
+    """Kernel vs plain version on the card, every case; returns the
+    worst max |diff| and the B=1 glide case's summary (kernel ms, plain
+    ms, bound ms, what bounds it)."""
     pulse_accumulate = pulse_kernel.pulse_accumulate
     dev = torch.device("cuda")
     worst = 0.0
@@ -177,48 +269,65 @@ def check_pulse_kernel():
         if name == "silence" and float(got.abs().max()) != 0.0:
             raise AssertionError("pulse kernel silence: nonzero output")
         ms = cuda_ms(lambda: pulse_accumulate(*tables, *shape))
-        plain_ms = cuda_ms(
-            lambda: pulse.accumulate_pulses_plain(*tables, *shape))
-        print(f"pulse_accumulate {name}: B={tuple(f0.shape)[0]} "
-              f"n={f0.shape[-1]} M={tables[1].shape[-1]} K={shape[-1]} "
-              f"max|diff|={err:.3e} kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms")
+        # the plain versions may wait on the host
+        p_ms = cuda_ms(lambda: pulse.accumulate_pulses_plain(*tables, *shape),
+                       PLAIN_REPS, gap_free=False)
+        batch, n = tables[0].shape
+        m = tables[1].shape[-1]
+        pairs = _pulse_live_pairs(tables[0], tables[1], tables[2], shape[-1])
+        bound, bound_by = bound_ms(4 * (2 * batch * n + 4 * batch * m),
+                                   PULSE_OPS_PER_PAIR * pairs)
+        print(f"pulse_accumulate {name}: B={batch} n={n} M={m} K={shape[-1]}"
+              f" live pairs {pairs} max|diff|={err:.3e} kernel {ms:.5f} ms "
+              f"plain {p_ms:.4f} ms bound {bound:.5f} ms ({bound_by})")
         if not err <= PULSE_TOL:
             raise AssertionError(f"pulse kernel {name}: max |diff| {err} "
                                  f"> {PULSE_TOL}")
         worst = max(worst, err)
         if name == "glide_gap":
-            timed = (ms, plain_ms)
-    return worst, timed[0], timed[1]
+            timed = (ms, p_ms, bound, bound_by)
+    return worst, timed
+
+
+def _voiced_signal(n: int, rng):
+    """A gliding f0 track with an unvoiced gap and a pulse-like voiced
+    signal with a noise floor, peak ~1, at n samples."""
+    t = np.arange(n) / SR
+    f0 = (200.0 * 2 ** (0.4 * np.sin(2 * np.pi * 2.0 * t))).astype(
+        np.float32)
+    f0[int(0.3 * n): int(0.45 * n)] = 0.0
+    phase = np.cumsum(f0 / SR)
+    x = (np.sin(2 * np.pi * phase) ** 15 * 0.8
+         + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    return x, torch.as_tensor(f0)
+
+
+def _layer_alpha(f0: torch.Tensor) -> np.ndarray:
+    """The su/sj layer highpass coefficients: cutoff max(f0, 120) Hz."""
+    return scan_iir.butter_alpha(torch.clamp(f0, min=120.0), f0.shape[0],
+                                 SR, 1.0, "highpass").numpy()
 
 
 def cascade_cases():
     """(name, x (B, n), alpha (n,), order, btype) at the note render's
     shapes and coefficient rules: the su/sj layer highpass (cutoff
-    max(f0, 120) Hz, order 6 and its doubled order-12 form), st tension
-    lowpasses, one_pole_highpass's constant coefficient, the B=2 fry
-    pair at 200 Hz and a silent row."""
+    max(f0, 120) Hz, order 6 and its doubled order-12 form, also at the
+    longest note's n and at 262144 samples, four tiles of the kernel),
+    st tension lowpasses, one_pole_highpass's constant coefficient, the
+    B=2 fry pair at 200 Hz and a silent row."""
     n = N_CHECK
-    t = np.arange(n) / SR
     rng = np.random.default_rng(1)
-    f0 = (200.0 * 2 ** (0.4 * np.sin(2 * np.pi * 2.0 * t))).astype(
-        np.float32)
-    f0[int(0.3 * n): int(0.45 * n)] = 0.0
-    # a pulse-like voiced signal with a noise floor, peak ~1
-    phase = np.cumsum(f0 / SR)
-    x = (np.sin(2 * np.pi * phase) ** 15 * 0.8
-         + 0.05 * rng.standard_normal(n)).astype(np.float32)
-    f0_t = torch.as_tensor(f0)
+    x, f0_t = _voiced_signal(n, rng)
 
     def alpha(f0_track, factor, btype):
         return scan_iir.butter_alpha(f0_track, n, SR, factor,
                                      btype).numpy()
 
-    hp_layer = alpha(torch.clamp(f0_t, min=120.0), 1.0, "highpass")
+    hp_layer = _layer_alpha(f0_t)
     rc = 1.0 / (2.0 * np.pi * 320.0)
     const = np.full(n, rc / (rc + 1.0 / SR), dtype=np.float32)
     pair = np.stack([x, rng.standard_normal(n).astype(np.float32) * 0.1])
-    return [
+    cases = [
         ("hp6_layer", x[None], hp_layer, 6, "highpass"),
         ("hp12_layer", x[None], hp_layer, 12, "highpass"),
         ("lp4_tension", x[None], alpha(f0_t, 2.0 - 0.3 * 0.75, "lowpass"),
@@ -230,16 +339,21 @@ def cascade_cases():
          "highpass"),
         ("silence", np.zeros((1, n), np.float32), hp_layer, 12, "highpass"),
     ]
+    for n_long in (N_LONG, 262144):
+        x_long, f0_long = _voiced_signal(n_long, rng)
+        cases.append((f"hp12_layer_{n_long}", x_long[None],
+                      _layer_alpha(f0_long), 12, "highpass"))
+    return cases
 
 
 def check_cascade_kernel():
-    """Kernel vs plain version on the card, every case; returns (worst
-    max |diff|, worst max |diff| / max|x|, kernel ms, plain ms), the
-    times of the order-12 layer case."""
+    """Kernel vs plain version on the card, every case; returns the worst
+    max |diff|, the worst max |diff| / max|x| and each case's (B, n,
+    order, btype, kernel ms, plain ms, bound ms, what bounds it)."""
     cascade = cascade_kernel.one_pole_cascade
     dev = torch.device("cuda")
     worst = worst_rel = 0.0
-    timed = None
+    rows = {}
     for name, x_np, alpha_np, order, btype in cascade_cases():
         x = torch.as_tensor(x_np, device=dev)
         alpha = torch.as_tensor(alpha_np, device=dev)
@@ -253,20 +367,31 @@ def check_cascade_kernel():
         err = float((got - want).abs().max())
         rel = err / max(float(x.abs().max()), 1e-30)
         ms = cuda_ms(lambda: cascade(x, alpha, order, btype))
-        plain_ms = cuda_ms(
-            lambda: scan_iir.one_pole_cascade_plain(x, alpha, order, btype))
-        print(f"one_pole_cascade {name}: B={x.shape[0]} n={x.shape[1]} "
-              f"order={order} {btype} max|diff|={err:.3e} "
-              f"max|diff|/max|x|={rel:.3e} kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms")
+        p_ms = cuda_ms(
+            lambda: scan_iir.one_pole_cascade_plain(x, alpha, order, btype),
+            PLAIN_REPS, gap_free=False)
+        # x read and out written once per row, alpha once (shared or per
+        # row); 3 flops per sample and stage
+        batch, n = x.shape
+        alpha_rows = batch if alpha.ndim == 2 else 1
+        bound, bound_by = bound_ms(4 * (2 * batch * n + alpha_rows * n),
+                                   3 * order * batch * n)
+        print(f"one_pole_cascade {name}: B={batch} n={n} order={order} "
+              f"{btype} max|diff|={err:.3e} max|diff|/max|x|={rel:.3e} "
+              f"kernel {ms:.5f} ms plain {p_ms:.4f} ms bound {bound:.5f} ms "
+              f"({bound_by})")
         if not rel <= CASCADE_TOL:
             raise AssertionError(f"cascade kernel {name}: max |diff| / "
                                  f"max|x| {rel} > {CASCADE_TOL}")
         worst = max(worst, err)
         worst_rel = max(worst_rel, rel)
+        rows[name] = (batch, n, order, btype, ms, p_ms, bound, bound_by)
         if name == "hp12_layer":
-            timed = (ms, plain_ms)
-    return worst, worst_rel, timed[0], timed[1]
+            prof = profiler_ms(lambda: cascade(x, alpha, order, btype),
+                               "one_pole_cascade_kernel")
+            print(f"one_pole_cascade {name}: torch.profiler device time "
+                  f"{prof:.5f} ms per launch (CUDA events {ms:.5f} ms)")
+    return worst, worst_rel, rows
 
 
 def _golden_configs():
@@ -370,6 +495,58 @@ def check_heavy(tmp: Path):
                              f"{budget}")
 
 
+def profile_heavy(tmp: Path, reps: int = 5) -> dict:
+    """torch.profiler (device activity only) over ``reps`` warm
+    heavy-stack renders through the CLI on CUDA.  Device busy is the
+    union of the device events' spans, idle share 1 - busy / wall of the
+    profiled renders."""
+    name, *args = HEAVY
+    argv = [str(tmp / "voice.wav"), str(tmp / f"prof_{name}.wav")] + [
+        str(a) for a in args]
+    if cli.main(argv) != 0:
+        raise AssertionError(f"profile {name}: cli rc != 0")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if cli.main(argv) != 0:
+                raise AssertionError(f"profile {name}: cli rc != 0")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy_us = 0.0
+    end = float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in events):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    kernels = [e for e in events
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    cascade_us = sum(e.time_range.elapsed_us() for e in kernels
+                     if "one_pole_cascade_kernel" in e.name)
+    out = {
+        "render_ms": wall_ms / reps,
+        "device_busy_ms": busy_us / 1e3 / reps,
+        "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "device_kernels": len(kernels) / reps,
+        "cascade_ms": cascade_us / 1e3 / reps,
+        "cascade_share": cascade_us / busy_us,
+    }
+    if out["cascade_ms"] <= 0.0:
+        raise AssertionError(f"profile {name}: no cascade kernel on the "
+                             "device")
+    print(f"profile {name} ({reps} warm renders): render "
+          f"{out['render_ms']:.3f} ms per note, device busy "
+          f"{out['device_busy_ms']:.3f} ms per note, idle share "
+          f"{out['idle_share']:.3f}, device kernels per note "
+          f"{out['device_kernels']:.1f}, cascade kernel "
+          f"{out['cascade_ms']:.4f} ms per note = "
+          f"{out['cascade_share']:.3f} of device busy")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -383,8 +560,8 @@ def main() -> int:
     print(f"build {', '.join(p.name for p in libs)}: "
           f"{time.perf_counter() - t0:.2f} s")
 
-    err, ms, plain_ms = check_pulse_kernel()
-    c_err, c_rel, c_ms, c_plain_ms = check_cascade_kernel()
+    err, (ms, p_ms, bound, bound_by) = check_pulse_kernel()
+    c_err, c_rel, c_rows = check_cascade_kernel()
 
     pulse_kernel.pulse_accumulate.launches = 0
     cascade_kernel.one_pole_cascade.launches = 0
@@ -392,24 +569,39 @@ def main() -> int:
         warm, per_note = render_slice(Path(tmp))
         launches, c_launches = _launches()
         check_heavy(Path(tmp))
+        prof = profile_heavy(Path(tmp))
     if launches <= 0:
         raise AssertionError("the render never launched the pulse kernel")
     if c_launches <= 0:
         raise AssertionError("the render never launched the cascade kernel")
+    heavy = per_note[HEAVY[0]]
+    if heavy[1] != HEAVY_CASCADE_LAUNCHES:
+        raise AssertionError(f"heavy note: {heavy[1]} cascade launches, "
+                             f"expected {HEAVY_CASCADE_LAUNCHES}")
     print(f"render: {len(warm)} configs, warm per-note median "
           f"{statistics.median(warm.values()) * 1e3:.1f} ms, max "
           f"{max(warm.values()) * 1e3:.1f} ms; kernel launches: pulse "
           f"{launches}, cascade {c_launches}")
 
+    no_library = ("no single PyTorch call computes this function: the "
+                  "nearest are loops of elementwise ops, which the plain "
+                  "version is")
+    *_, c_ms, c_p_ms, c_bound, c_bound_by = c_rows["hp12_layer"]
     print(json.dumps({"kernels": [{
         "name": "pulse_accumulate",
         "route": "cuda",
         "source": "goofer_tpu_torch/csrc/pulse_accumulate.cu",
         "replaces": "goofer_tpu/ops/pallas/pulse_kernel.py:61",
         "launches": launches,
+        "launches_per_heavy_note": heavy[0],
         "max_abs_err": err,
         "ms": ms,
-        "plain_ms": plain_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "library_note": no_library,
+        "timed_case": "glide_gap, B=1, n=40000",
     }, {
         "name": "one_pole_cascade",
         "route": "cuda",
@@ -418,10 +610,19 @@ def main() -> int:
         "note": "replaces non-Pallas JAX code: first_order_recurrence_pos, "
                 "the stage solver of dynamic_one_pole_cascade",
         "launches": c_launches,
+        "launches_per_heavy_note": heavy[1],
         "max_abs_err": c_err,
         "max_rel_err": c_rel,
         "ms": c_ms,
-        "plain_ms": c_plain_ms,
+        "plain_ms": c_p_ms,
+        "bound_ms": c_bound,
+        "bound_by": c_bound_by,
+        "library_ms": None,
+        "library_note": no_library,
+        "timed_case": "hp12_layer, B=1, n=40000, order 12",
+        "ms_by_case": {k: v[4] for k, v in c_rows.items()},
+        "heavy_note_device_ms": prof["cascade_ms"],
+        "heavy_note_device_share": prof["cascade_share"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

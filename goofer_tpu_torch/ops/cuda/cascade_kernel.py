@@ -1,9 +1,12 @@
 """Wrapper of the Hopper one-pole cascade kernel.
 
 ``csrc/one_pole_cascade.cu`` runs a whole time-varying one-pole LP or HP
-cascade in one launch (it replaces goofer_tpu/ops/scan_iir.py's
-first_order_recurrence_pos stages, non-Pallas JAX code) and is built at
-first use by ops/cuda/_build.py.
+cascade of order 1-``MAX_ORDER`` in one launch, one thread-block cluster
+per row (it replaces goofer_tpu/ops/scan_iir.py's
+first_order_recurrence_pos stages, non-Pallas JAX code), and is built at
+first use by ops/cuda/_build.py.  ``CLUSTER``, ``THREADS`` and ``RUN``
+mirror the source's constants: a row is walked in tiles of ``TILE``
+samples, and each thread holds a run of ``RUN`` of them.
 
 ``one_pole_cascade`` takes the plain PyTorch version
 (ops/scan_iir.py:one_pole_cascade_plain) only for CPU tensors.  For CUDA
@@ -19,12 +22,16 @@ import torch
 from goofer_tpu_torch.ops.cuda._build import Kernel
 
 BTYPES = ("lowpass", "highpass")
+MAX_ORDER = 12
+CLUSTER = 8
+THREADS = 1024
+RUN = 8
+TILE = CLUSTER * THREADS * RUN
 
 KERNEL = Kernel(
     "one_pole_cascade", "goofer_one_pole_cascade",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check_inputs(x: torch.Tensor, alpha: torch.Tensor) -> None:
@@ -43,6 +50,9 @@ def _check_inputs(x: torch.Tensor, alpha: torch.Tensor) -> None:
         raise ValueError("one_pole_cascade: x must be (B, n) and alpha (n,) "
                          f"or (B, n), got {tuple(x.shape)} and "
                          f"{tuple(alpha.shape)}")
+    if x.shape[1] > 2**31 - 1 - TILE:
+        raise ValueError(f"one_pole_cascade: rows of {x.shape[1]} samples "
+                         "overflow the kernel's int indices")
 
 
 def one_pole_cascade(x: torch.Tensor, alpha: torch.Tensor, order: int,
@@ -58,17 +68,17 @@ def one_pole_cascade(x: torch.Tensor, alpha: torch.Tensor, order: int,
         from goofer_tpu_torch.ops.scan_iir import one_pole_cascade_plain
 
         return one_pole_cascade_plain(x, alpha, order, btype)
+    if order > MAX_ORDER:
+        raise ValueError(f"one_pole_cascade: order {order} > {MAX_ORDER}")
     _check_inputs(x, alpha)
     launch = KERNEL.function()
     batch, n = x.shape
     out = torch.empty_like(x)
-    scratch = torch.empty_like(x) if order > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), alpha.data_ptr(),
-                     n if alpha.ndim == 2 else 0, out.data_ptr(),
-                     scratch.data_ptr() if scratch is not None else None,
-                     batch, n, order, BTYPES.index(btype), stream)
+                     n if alpha.ndim == 2 else 0, out.data_ptr(), batch, n,
+                     order, BTYPES.index(btype), stream)
     if err != 0:
         raise RuntimeError(f"one_pole_cascade kernel launch failed: CUDA "
                            f"error {err}")

@@ -1,7 +1,8 @@
 """Spectral-envelope decode and envelope-domain transforms.
 
 Port of the render-path half of goofer_tpu/ops/envelope.py: the mel-knot
-decode (a dense (n_bins, K) @ (K, T) product, ref: GOOFER.py:149-168),
+decode (ref: GOOFER.py:149-168; goofer_tpu's dense (n_bins, K) @ (K, T)
+product, here the two-tap lerp each row of that matrix is),
 the global and per-formant frequency warps, the vocal-fry compression,
 envelope smoothing / sharpening and frame-count matching.  The
 per-formant warp and the fry compression resample each column with
@@ -38,39 +39,39 @@ def mel_knot_freqs(sr: int, n_fft: int, k: int) -> np.ndarray:
     return mel_to_hz(mel_knots).astype(COMPUTE_DTYPE)
 
 
-def interp_matrix(freqs_full: np.ndarray, hz_knots: np.ndarray) -> np.ndarray:
-    """(n_bins, K) linear-interp matrix; env = exp(W @ knots)
-    (ref: GOOFER.py:84-95)."""
-    n = len(freqs_full)
+def interp_taps(freqs_full: np.ndarray, hz_knots: np.ndarray):
+    """The (n_bins, K) linear-interp matrix W of env = exp(W @ knots)
+    (ref: GOOFER.py:84-95) by its two non-zero weights per row: row i
+    holds w0[i] at column idx[i] and w1[i] at idx[i] + 1."""
     k = len(hz_knots)
     idx = np.searchsorted(hz_knots, freqs_full, side="right") - 1
     idx = np.clip(idx, 0, k - 2)
     x0 = hz_knots[idx]
     x1 = hz_knots[idx + 1]
-    w1 = (freqs_full - x0) / np.maximum(x1 - x0, 1e-12)
-    w0 = 1.0 - w1
-    w = np.zeros((n, k), dtype=COMPUTE_DTYPE)
-    rows = np.arange(n)
-    w[rows, idx] = w0
-    w[rows, idx + 1] = w1
-    return w
+    w1 = ((freqs_full - x0) / np.maximum(x1 - x0, 1e-12)).astype(
+        COMPUTE_DTYPE)
+    w0 = (1.0 - w1).astype(COMPUTE_DTYPE)
+    return idx, np.stack([w0, w1], axis=-1)
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_matrix(sr: int, n_fft: int, k: int) -> np.ndarray:
+def _decode_taps(sr: int, n_fft: int, k: int):
     freqs = np.fft.rfftfreq(n_fft, 1.0 / sr).astype(COMPUTE_DTYPE)
-    return interp_matrix(freqs, mel_knot_freqs(sr, n_fft, k))
+    return interp_taps(freqs, mel_knot_freqs(sr, n_fft, k))
 
 
 def decode_env_from_knots(knot_vals_log: torch.Tensor, sr: int, n_fft: int,
                           n_bins: int) -> torch.Tensor:
     """exp(W @ knots) in float32, truncated to n_bins rows
-    (ref: GOOFER.py:149-168)."""
-    k = knot_vals_log.shape[0]
-    w = torch.as_tensor(_decode_matrix(sr, n_fft, k),
-                        device=knot_vals_log.device)
-    env = torch.exp(torch.matmul(w, knot_vals_log.float()))
-    return env[:n_bins]
+    (ref: GOOFER.py:149-168).  W has two non-zero weights per row, so the
+    product is a lerp of two gathered knot rows: two rounded products and
+    one add per element, the same on every device and BLAS build."""
+    idx, w = _decode_taps(sr, n_fft, knot_vals_log.shape[0])
+    dev = knot_vals_log.device
+    idx = torch.as_tensor(idx[:n_bins], device=dev)
+    w = torch.as_tensor(w[:n_bins], device=dev)
+    knots = knot_vals_log.float()
+    return torch.exp(w[:, :1] * knots[idx] + w[:, 1:] * knots[idx + 1])
 
 
 def gather_lerp_columns(env: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

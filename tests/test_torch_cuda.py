@@ -18,6 +18,7 @@ import numpy as np  # noqa: E402
 
 from chip_smoke import CASCADE_TOL, cascade_cases  # noqa: E402
 from goofer_tpu_torch.ops import pulse, scan_iir  # noqa: E402
+from goofer_tpu_torch.ops.cuda import cascade_kernel  # noqa: E402
 from goofer_tpu_torch.ops.cuda.cascade_kernel import one_pole_cascade  # noqa: E402
 from goofer_tpu_torch.ops.cuda.pulse_kernel import pulse_accumulate  # noqa: E402
 from goofer_tpu_torch.sampler import render_core  # noqa: E402
@@ -102,17 +103,61 @@ def test_cascade_kernel_matches_plain(dev, case):
         torch.testing.assert_close(got, want, atol=tol, rtol=0.0)
 
 
-def test_cascade_per_row_alpha(dev):
-    """(B, n) coefficients: each row filtered with its own."""
-    rng = np.random.default_rng(2)
-    x = torch.as_tensor(rng.standard_normal((3, 5000)).astype(np.float32),
-                        device=dev)
-    alpha = torch.as_tensor(rng.uniform(0.9, 0.999, (3, 5000)).astype(
-        np.float32), device=dev)
-    got = one_pole_cascade(x, alpha, 5, "highpass")
-    want = scan_iir.one_pole_cascade_plain(x, alpha, 5, "highpass")
-    torch.testing.assert_close(got, want, atol=1e-4 * float(x.abs().max()),
-                               rtol=0.0)
+def _hold_to_plain(x, alpha, order, btype):
+    before = one_pole_cascade.launches
+    got = one_pole_cascade(x, alpha, order, btype)
+    want = scan_iir.one_pole_cascade_plain(x, alpha, order, btype)
+    torch.cuda.synchronize()
+    assert one_pole_cascade.launches == before + 1
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0.0,
+                               atol=CASCADE_TOL * float(x.abs().max()))
+
+
+@pytest.mark.parametrize("order,btype", [(o, b) for b in ("lowpass",
+                                                          "highpass")
+                                         for o in (1, 2, 6, 12)])
+@pytest.mark.parametrize("batch,per_row", [(1, False), (1, True), (2, False),
+                                           (2, True), (8, False), (8, True)])
+@pytest.mark.parametrize("n", [1, 2, 5, 1025, 48510, 262144])
+def test_cascade_kernel_edges(dev, n, batch, per_row, order, btype):
+    """Row lengths from one sample to four tiles, (n,) and (B, n)
+    coefficients, against the plain version."""
+    rng = np.random.default_rng(n * 100 + batch * 10 + order)
+    x = rng.standard_normal((batch, n)).astype(np.float32)
+    x[:, n // 3:] += 2.0
+    alpha = rng.uniform(0.9, 0.999, (batch, n) if per_row else n)
+    _hold_to_plain(torch.as_tensor(x, device=dev),
+                   torch.as_tensor(alpha.astype(np.float32), device=dev),
+                   order, btype)
+
+
+@pytest.mark.parametrize("order,btype", [(1, "highpass"), (12, "highpass"),
+                                         (6, "lowpass")])
+def test_cascade_kernel_steps_at_boundaries(dev, order, btype):
+    """Steps at a run, a warp, a CTA and a tile boundary of the kernel's
+    decomposition: a wrong carry or HP boundary value shows there."""
+    run = cascade_kernel.RUN
+    n = 2 * cascade_kernel.TILE + 777
+    x = np.zeros((2, n), np.float32)
+    for edge in (37 * run, 3 * 32 * run, cascade_kernel.THREADS * run,
+                 cascade_kernel.TILE, 2 * cascade_kernel.TILE):
+        x[0, edge:] += 1.0
+        x[1, edge - 1:] -= 0.5
+    alpha = np.linspace(0.95, 0.999, n, dtype=np.float32)
+    _hold_to_plain(torch.as_tensor(x, device=dev),
+                   torch.as_tensor(alpha, device=dev), order, btype)
+
+
+def test_cascade_kernel_silent_rows(dev):
+    """Silent rows of every length class give exact zeros."""
+    for n in (1, 1025, 262144):
+        x = torch.zeros((2, n), device=dev)
+        alpha = torch.full((n,), 0.98, device=dev)
+        for btype in ("lowpass", "highpass"):
+            got = one_pole_cascade(x, alpha, 12, btype)
+            torch.cuda.synchronize()
+            assert float(got.abs().max()) == 0.0
 
 
 def test_cascade_wrapper_rejects_bad_inputs(dev):
@@ -126,6 +171,8 @@ def test_cascade_wrapper_rejects_bad_inputs(dev):
         one_pole_cascade(x, alpha.double(), 2, "lowpass")
     with pytest.raises(ValueError, match=r"\(B, n\)"):
         one_pole_cascade(x, alpha[:10], 2, "lowpass")
+    with pytest.raises(ValueError, match="order"):
+        one_pole_cascade(x, alpha, cascade_kernel.MAX_ORDER + 1, "lowpass")
 
 
 @pytest.mark.parametrize("cfg_id", ["env-fx", "loops-concat", "subharm",

@@ -4,8 +4,10 @@ The same seeded NumPy inputs go through the JAX function and its port.
 Tolerances: interpolation, filters, envelope transforms and the
 deterministic jitter forms are float32 elementwise chains (atol 1e-5);
 the STFT/iSTFT sum in another FFT order (1e-4 x peak); the knot decode
-is a float32 matrix product followed by exp, held with both sides to the
-float64 result within float32's rounding bound (~1.5e-6 relative)."""
+(a two-tap lerp in the port, a float32 matrix product in goofer_tpu)
+followed by exp is held side by side, each side to the float64 result
+and the two to each other, within float32's rounding bound (~1.5e-6
+relative, doubled between the sides)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -127,37 +129,51 @@ def test_istft_matches_jax(n):
     _close(got, want, atol=1e-4 * np.abs(want).max())
 
 
-def test_decode_env_from_knots(monkeypatch):
-    """Both sides against the exact exp(W @ k) in float64, and against
-    each other.  Each row of W holds two non-zero weights, so a float32
-    evaluation is off by at most 2u sum|w k| in the log envelope (two
-    rounded products and one add, u = 2^-24) plus a few ulp of exp: the
-    bound below, ~1.5e-6 relative here.  goofer_tpu's matmul dtype and
-    precision are pinned to float32 / highest."""
-    from goofer_tpu import config as j_config
+def _decoded(side, k32, monkeypatch):
+    """The knot decode of ``k32`` (48 knots, 90 frames) by the port, by
+    goofer_tpu (its matmul dtype and precision pinned to float32 /
+    highest) or exactly, in float64 from goofer_tpu's own W."""
+    if side == "port":
+        return envelope.decode_env_from_knots(torch.as_tensor(k32), SR, 1024,
+                                              513).numpy()
+    if side == "goofer_tpu":
+        from goofer_tpu import config as j_config
 
-    monkeypatch.setattr(j_config, "ENVELOPE_MATMUL_DTYPE", "float32")
+        monkeypatch.setattr(j_config, "ENVELOPE_MATMUL_DTYPE", "float32")
+        with jax.default_matmul_precision("highest"):
+            return np.asarray(j_env.decode_env_from_knots(
+                jnp.asarray(k32), SR, 1024, 513))
+    w = j_env._decode_matrix(SR, 1024, 48).astype(np.float64)
+    return np.exp(w @ k32.astype(np.float64))[:513]
+
+
+@pytest.mark.parametrize("got_side,want_side", [
+    ("port", "float64"), ("goofer_tpu", "float64"), ("port", "goofer_tpu")],
+    ids=["port-vs-float64", "goofer_tpu-vs-float64", "port-vs-goofer_tpu"])
+def test_decode_env_from_knots(got_side, want_side, monkeypatch):
+    """One side of the decode against another; the case's name says
+    which side is off.  Each row of W holds two non-zero weights, so a
+    float32 evaluation is off by at most 2u sum|w k| in the log envelope
+    (two rounded products and one add, u = 2^-24) plus a few ulp of exp:
+    the bound below, ~1.5e-6 relative here, doubled between two float32
+    sides."""
     rng = np.random.default_rng(6)
-    knots = rng.normal(-4.0, 1.0, (48, 90)).astype(np.float16)
-    k32 = knots.astype(np.float32)
-    got = envelope.decode_env_from_knots(torch.as_tensor(k32), SR, 1024,
-                                         513).numpy()
-    with jax.default_matmul_precision("highest"):
-        want = np.asarray(j_env.decode_env_from_knots(
-            jnp.asarray(k32), SR, 1024, 513))
-    w = envelope._decode_matrix(SR, 1024, 48).astype(np.float64)
-    exact = np.exp(w @ k32.astype(np.float64))[:513]
+    k32 = rng.normal(-4.0, 1.0, (48, 90)).astype(np.float16).astype(
+        np.float32)
+    w = j_env._decode_matrix(SR, 1024, 48).astype(np.float64)
     u = 2.0 ** -24
     bound = 2 * u * float((np.abs(w) @ np.abs(k32)).max()) + 8 * u
-    err_port = float(np.max(np.abs(got / exact - 1.0)))
-    err_jax = float(np.max(np.abs(want / exact - 1.0)))
-    err_pair = float(np.max(np.abs(got / want - 1.0)))
-    msg = (f"max relative error: port {err_port:.3e}, goofer_tpu "
-           f"{err_jax:.3e} (vs float64; bound {bound:.3e}), port vs "
-           f"goofer_tpu {err_pair:.3e} (bound {2 * bound:.3e})")
-    assert got.shape == want.shape == (513, 90), msg
-    assert err_port <= bound and err_jax <= bound, msg
-    assert err_pair <= 2 * bound, msg
+    if want_side != "float64":
+        bound *= 2
+    got = _decoded(got_side, k32, monkeypatch)
+    want = _decoded(want_side, k32, monkeypatch)
+    assert got.shape == want.shape == (513, 90)
+    rel = np.abs(got / want - 1.0)
+    worst = np.unravel_index(np.argmax(rel), rel.shape)
+    assert rel.max() <= bound, (
+        f"{got_side} vs {want_side}: max relative error {rel.max():.3e} "
+        f"at {worst}, {np.mean(rel > bound):.1%} of elements over the "
+        f"bound {bound:.3e}")
 
 
 def _env(seed=7, t=60):

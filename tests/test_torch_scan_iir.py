@@ -8,7 +8,10 @@ tests/oracles.py.  Tolerances: the reference suite's rtol 5e-3 / atol
 another association order; HP cascades near alpha = 1 amplify rounding);
 port vs JAX rtol 1e-3 / atol 2e-5, two float32 scans of the same
 recurrences; the fry shift is a float32 lerp (atol 2e-6, the banded-vs-
-gather equivalence of tests/test_envelope.py)."""
+gather equivalence of tests/test_envelope.py).  The model of the card
+kernel's decomposition is held to the plain version within the card's
+kernel tolerance, 1e-4 x max|x|: two float32 scans of the same
+recurrences in other association orders."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -133,6 +136,112 @@ def test_cascade_plain_short_rows(n):
                 y[:, i] = prev
             want = y
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _scan_maps(a, b, axis):
+    """Inclusive scan of the maps y -> a y + b along ``axis``, float32."""
+    a = np.moveaxis(a, axis, -1).copy()
+    b = np.moveaxis(b, axis, -1).copy()
+    for i in range(1, a.shape[-1]):
+        b[..., i] = a[..., i] * b[..., i - 1] + b[..., i]
+        a[..., i] = a[..., i] * a[..., i - 1]
+    return np.moveaxis(a, -1, axis), np.moveaxis(b, -1, axis)
+
+
+def _exclusive(inc, axis, identity):
+    """Shift an inclusive scan one place along ``axis``."""
+    first = np.full_like(np.take(inc, [0], axis=axis), identity)
+    return np.concatenate([first, np.delete(inc, -1, axis=axis)], axis=axis)
+
+
+def _kernel_model(x, alpha, order, btype, cluster=2, warps=2, lanes=4,
+                  run=3):
+    """A float32 NumPy model of csrc/one_pole_cascade.cu's decomposition
+    at a small size.  A row is walked in tiles of cluster x warps x lanes
+    runs of ``run`` samples.  Per tile and stage: each run's map from
+    y = 0; inclusive scans over the lanes of a warp, the warps of a CTA
+    and the CTAs of the cluster; the stage's tile carry entering at rank
+    0; the re-run from each carry-in; and as the next stage's HP boundary
+    value, this stage's carry-in (x[-1] := x[0] at the row's start)."""
+    hp = btype == "highpass"
+    rows, n = x.shape
+    alpha = np.broadcast_to(alpha, x.shape)
+    runs = cluster * warps * lanes
+    tile = runs * run
+    out = np.zeros_like(x)
+    grid = (cluster, warps, lanes)
+    for r in range(rows):
+        carries = np.zeros(order, np.float32)
+        for t0 in range(0, n, tile):
+            lo = t0 + run * np.arange(runs)
+            cnt = np.clip(n - lo, 0, run)
+            v = np.zeros((runs, run), np.float32)
+            al = np.zeros((runs, run), np.float32)
+            seg = x[r, t0:t0 + tile]
+            v.reshape(-1)[:seg.size] = seg
+            al.reshape(-1)[:seg.size] = alpha[r, t0:t0 + tile]
+            xp = np.where(lo == 0, v[:, 0], x[r, np.clip(lo - 1, 0, n - 1)])
+            for s in range(order):
+                y = np.zeros(runs, np.float32)
+                a = np.ones(runs, np.float32)
+                xq = xp.copy()
+                for k in range(run):
+                    live = k < cnt
+                    if hp:
+                        y = np.where(live, al[:, k] * ((y + v[:, k]) - xq), y)
+                        a = np.where(live, a * al[:, k], a)
+                        xq = np.where(live, v[:, k], xq)
+                    else:
+                        y = np.where(live, y + al[:, k] * (v[:, k] - y), y)
+                        a = np.where(live, a * (1.0 - al[:, k]), a)
+                la, lb = _scan_maps(a.reshape(grid), y.reshape(grid), 2)
+                wa, wb = _scan_maps(la[..., -1], lb[..., -1], 1)
+                ca, cb = _scan_maps(wa[:, -1], wb[:, -1], 0)
+                carry = carries[s]
+                y_cta = _exclusive(ca, 0, 1.0) * carry + _exclusive(cb, 0, 0.0)
+                y_warp = (_exclusive(wa, 1, 1.0) * y_cta[:, None]
+                          + _exclusive(wb, 1, 0.0))
+                y_in = (_exclusive(la, 2, 1.0) * y_warp[..., None]
+                        + _exclusive(lb, 2, 0.0)).reshape(-1)
+                carries[s] = ca[-1] * carry + cb[-1]
+                y = y_in.copy()
+                xq = xp.copy()
+                for k in range(run):
+                    live = k < cnt
+                    if hp:
+                        y_new = al[:, k] * ((y + v[:, k]) - xq)
+                        xq = np.where(live, v[:, k], xq)
+                    else:
+                        y_new = y + al[:, k] * (v[:, k] - y)
+                    y = np.where(live, y_new, y)
+                    v[:, k] = np.where(live, y, v[:, k])
+                xp = np.where(lo == 0, v[:, 0], y_in)
+            out[r, t0:t0 + tile] = v.reshape(-1)[:min(tile, n - t0)]
+    return out
+
+
+@pytest.mark.parametrize("btype", ["lowpass", "highpass"])
+@pytest.mark.parametrize("order", [1, 2, 6, 12])
+def test_kernel_decomposition_model(btype, order):
+    """The card kernel's tiles, CTAs, warps and runs with their per-stage
+    carries and HP boundary values, modelled at 48-sample tiles on rows
+    of 3 ragged tiles with steps at a run and a tile boundary, against
+    the plain version and goofer_tpu's dynamic_butter_filter."""
+    x, f0 = _signal(20 + order, 131)
+    x[45:] += 2.0       # a run boundary inside the first tile
+    x[96:] -= 1.0       # a tile boundary
+    rows = np.stack([x, x[::-1].copy()])
+    factor = 1.5
+    alpha = scan_iir.butter_alpha(torch.as_tensor(f0), 131, SR, factor,
+                                  btype).numpy()
+    got = _kernel_model(rows, alpha, order, btype)
+    plain = scan_iir.one_pole_cascade_plain(
+        torch.as_tensor(rows), torch.as_tensor(alpha), order, btype).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0.0,
+                               atol=1e-4 * np.abs(rows).max())
+    np.testing.assert_allclose(got[0], _jax_butter(x, f0, factor, order,
+                                                   btype),
+                               rtol=1e-3, atol=2e-5)
 
 
 def test_cascade_wrapper_cpu_counts_no_launch():
