@@ -11,9 +11,12 @@ Phases (any failure raises and the script exits nonzero):
 2. build the hand-written CUDA kernels (csrc/pulse_accumulate.cu and
    csrc/one_pole_cascade.cu), one nvcc each, started together, into
    build/goofer_tpu_torch/ and print the build time;
-3. check the pulse kernel against its plain PyTorch version on the card
-   at the note render's shapes (B=1, n=40000 and B=8), max |diff| <=
-   1e-4, and time both;
+3. check the pulse kernel (the whole pulse pass: f0 in, pulse train out)
+   against its plain PyTorch version on the card at the note render's
+   shapes (B=1 and B=8 at n=40000, the longest note's n=48510, onsets at
+   the kernel's run, warp, CTA and tile edges over two tiles; main and
+   gated passes; a silent row must give exact zeros), max |diff| <= 1e-4,
+   print each case's onset-phase margin and bound, and time both;
 4. check the cascade kernel the same way (B=1 and the B=2 fry pair at
    n=40000; HP orders 1, 6 and 12, LP orders 4 and 6; the order-12 layer
    at n=48510, the longest note, and 262144; a silent row must give exact
@@ -22,14 +25,15 @@ Phases (any failure raises and the script exits nonzero):
 5. render the 12 golden configs and the heavy 11-flag stack through
    goofer_tpu_torch.cli.main on CUDA from the vendored .goofy caches:
    each golden must be finite, of the golden's length and within its
-   golden's LSD budget; both kernels' launch counters must rise, 5
-   cascade launches per heavy note; print each config's warm per-note
-   time and launches per note;
+   golden's LSD budget; both kernels' launch counters must rise, 4 pulse
+   and 5 cascade launches per heavy note; print each config's warm
+   per-note time and launches per note;
 6. hold the heavy stack against the port's own CPU render of the same
    note (it is stochastic: LSD <= max(1 dB, CPU seed-to-seed + 0.5 dB));
 7. profile 5 warm heavy-stack renders under torch.profiler: device busy
-   ms, idle share, device kernels per note, the cascade kernel's device
-   ms per note and its share of device busy;
+   ms, idle share, device kernels per note, each kernel's device ms per
+   note and its share of device busy; no scan or searchsorted kernel of
+   the old pulse-table build may appear;
 8. print the kernel summary as one JSON line, then the device line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
@@ -96,6 +100,7 @@ HEAVY = ("heavy_stack", "C4", 100,
          "sh30sr30sg40su40sj20st-30vf40es30pd40fw20fsta50", 100, 900, 200,
          0, 100, 0, "!120", "AA")
 HEAVY_CASCADE_LAUNCHES = 5
+HEAVY_PULSE_LAUNCHES = 4
 SR = 44100
 N_CHECK = 40000
 # the voice source's notes, the longest on the main path
@@ -110,10 +115,20 @@ SPIN_CYCLES = 20_000_000
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-# float32 operations per live (sample, onset) pair of the pulse kernel:
-# the phase division and tests, one sinf or expf + cosf (about 20 each
-# with range reduction), the normalising division and the add
+# operations of the pulse kernel: per live (sample, onset row) pair the
+# phase division and tests, one sinf or expf + cosf (about 20 each with
+# range reduction), the normalising division and the add; per sample the
+# scan work (scale, tests, the float64 phase division and add, floor,
+# the scans' shares); per onset its table row (reciprocal, rint, the grid
+# peak's two LF evaluations)
 PULSE_OPS_PER_PAIR = 30
+PULSE_OPS_PER_SAMPLE = 20
+PULSE_OPS_PER_ONSET = 60
+# device kernels of the old eager pulse-table build in ops/pulse.py:
+# torch.cumsum (CUB's DeviceScan), cummax (ATen's scan with indices) and
+# searchsorted; no other op of the render runs them
+TABLE_BUILD_KERNELS = ("DeviceScan", "scan_innermost_dim", "scan_outer_dim",
+                       "searchsorted")
 
 
 def card_line() -> str:
@@ -184,8 +199,92 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def f0_with_onsets(positions, n: int, sr: float = SR) -> np.ndarray:
+    """An f0 track whose float64 phase crosses an integer exactly at the
+    given samples, and at no other: between onsets at p_a < p_b the phase
+    runs k + (i - p_a + 0.5) / (p_b - p_a), so each crossing clears its
+    integer by 0.5 / (p_b - p_a) of a cycle, far from any tie."""
+    phase = np.zeros(n)
+    ends = list(positions) + [n + max(1, n - positions[-1])]
+    i = np.arange(n)
+    first = i < positions[0]
+    phase[first] = (i[first] + 0.5) / (positions[0] + 1)
+    for k, (a, b) in enumerate(zip(ends[:-1], ends[1:]), start=1):
+        span = (i >= a) & (i < b)
+        phase[span] = k + (i[span] - a + 0.5) / (b - a)
+    return (np.diff(phase, prepend=0.0) * sr).astype(np.float32)
+
+
+def kernel_edges(n: int) -> list[int]:
+    """Onset samples at the pulse kernel's run, warp, CTA and tile edges
+    for an n-sample row (one before and at each), among fillers every 173
+    samples."""
+    run = pulse_kernel.RUN
+    tile, seg = pulse_kernel.tile_geometry(n)
+    edges = set(range(150, n - 1, 173))
+    for e in (run, 32 * run, seg, 3 * seg + 32 * run, tile, tile + 5 * seg,
+              2 * tile):
+        edges.update((e - 1, e))
+    return sorted(x for x in edges if 0 <= x < n)
+
+
+def pulse_pass_args(f0_np: np.ndarray, gated: bool) -> tuple:
+    """The pass's scalars after f0 and gate: (sr, scale, fallback_f0, Ra,
+    Rg, Rk, guard, K, min_spacing).  Main pass as the resampler derives
+    them for the main layer (K and spacing from the pitch range);
+    gated pass as the sg layer's semitone +12 (ratio 2, K 8, spacing 8)."""
+    if gated:
+        return (SR, 2.0, config.PULSE_FALLBACK_F0 * 2.0, 0.02, 1.7, 1.0,
+                False, 8, 8)
+    voiced = f0_np[f0_np > 0]
+    hi = max(float(voiced.max()) if voiced.size else 0.0,
+             config.PULSE_FALLBACK_F0)
+    lo = min(float(voiced.min()) if voiced.size else hi,
+             config.PULSE_FALLBACK_F0)
+    k = config.bucket_overlap(int(min(32, max(3, np.ceil(0.804 * hi / lo)
+                                              + 2))))
+    spacing = config.bucket_min_spacing(int(SR / hi))
+    return (SR, 1.0, config.PULSE_FALLBACK_F0, 0.02, 1.7, 0.8, True, k,
+            spacing)
+
+
+def phase_margin(f0: torch.Tensor, gate, sr: float, scale: float) -> float:
+    """The least distance of the plain version's float64 phase to an
+    integer over samples where the phase is not 0 (inf if none): an onset
+    decision can flip between the kernel's and torch.cumsum's association
+    orders only within ~1e-12 of an integer."""
+    phase = pulse.pass_phase(f0, gate, sr, scale)[2]
+    phase = phase[phase != 0]
+    if phase.numel() == 0:
+        return float("inf")
+    return float((phase - torch.round(phase)).abs().min())
+
+
+def exact_onsets(f0_row: np.ndarray, sr: float) -> np.ndarray:
+    """Main-pass onsets of one row from the exact sum of its float64 phase
+    steps, each an int with 64 fraction bits as the kernel adds them: the
+    kernel's onsets where the float64 cumsum of the plain version lies
+    within rounding of an integer."""
+    d = np.asarray(f0_row, np.float32).astype(np.float64) / sr
+    phase = np.cumsum(np.array([int(x * 2.0 ** 64) for x in d], object))
+    cyc = np.array([int(x) >> 64 for x in phase])
+    return cyc > np.concatenate([[0], cyc[:-1]])
+
+
+def exact_phase_plain(f0: torch.Tensor, args) -> torch.Tensor:
+    """The plain main pass on exact-phase onsets (exact_onsets)."""
+    sr, scale, fallback, ra, rg, rk, guard, k, spacing = args
+    onset = torch.as_tensor(np.stack([exact_onsets(r, sr) for r in
+                                      (f0 * scale).cpu().numpy()]),
+                            device=f0.device)
+    sub = f0 * scale
+    tables = pulse._compact_onset_tables(onset, sub, sub > 1e-6, fallback,
+                                         sr, ra, rg, rk, guard, spacing)
+    return pulse.accumulate_pulses_plain(*tables, ra, rg, rk, guard, k)
+
+
 def _pulse_cases():
-    """(name, f0 (B, n), mask or None) at the note render's shapes; the
+    """(name, f0 (B, n), gate or None) at the note render's shapes; the
     constant and glide cases follow tests/test_pallas_pulse.py."""
     n = N_CHECK
     t = np.arange(n) / SR
@@ -200,19 +299,34 @@ def _pulse_cases():
     cases.append(("glide_gap", glide[None], None))
     cases.append(("silence", np.zeros((1, n), np.float32), None))
     mask = (glide > 0).astype(np.float32)
-    cases.append(("subharm", (2.0 * glide)[None], mask[None]))
+    cases.append(("subharm", glide[None], mask[None]))
     rng = np.random.default_rng(0)
     base = rng.uniform(90.0, 600.0, size=(8, 1))
     batch = (base * 2 ** (0.2 * np.sin(2 * np.pi * rng.uniform(1, 6, (8, 1))
                                        * t[None]))).astype(np.float32)
     batch[:, : n // 10] = 0.0
     cases.append(("batch8", batch, None))
+    t_long = np.arange(N_LONG) / SR
+    long = (180.0 * 2 ** (0.3 * np.sin(2 * np.pi * 3.0 * t_long))).astype(
+        np.float32)
+    long[: N_LONG // 9] = 0.0
+    cases.append((f"glide_{N_LONG}", long[None], None))
+    n_edges = 2 * pulse_kernel.TILE + 777
+    cases.append(("edges", f0_with_onsets(kernel_edges(n_edges),
+                                          n_edges)[None], None))
+    # the voice goldens' constant pitches: the phase comes within 1e-13 of
+    # an integer every 11 periods at 220 Hz, at every period at 441 Hz
+    ties = np.stack([np.full(N_LONG, hz, np.float32)
+                     for hz in (220.0, 441.0, 110.25)])
+    cases.append(("ties", ties, None))
     return cases
 
 
-def _pulse_live_pairs(row, pos_tab, t0_tab, max_overlap) -> int:
-    """(sample, onset row) pairs the pulse kernel evaluates on this data:
-    j = row - k for k < K inside the table, with 0 <= i - pos[j] < T0[j]."""
+def _pulse_work(tables, max_overlap) -> tuple[int, int]:
+    """(live (sample, onset row) pairs, table rows) of a pass on this
+    data: pairs j = row - k for k < K inside the table, with 0 <= i -
+    pos[j] < T0[j]; rows, the onsets that get one (at most M per row)."""
+    row, pos_tab, t0_tab = tables[:3]
     n = row.shape[-1]
     t = torch.arange(n, device=row.device, dtype=torch.float32)
     live = 0
@@ -223,70 +337,64 @@ def _pulse_live_pairs(row, pos_tab, t0_tab, max_overlap) -> int:
         offs = t - torch.gather(pos_tab, 1, j)
         ok &= (offs >= 0) & (offs < torch.gather(t0_tab, 1, j))
         live += int(ok.sum())
-    return live
+    return live, int(torch.clamp(row[:, -1] + 1, max=pos_tab.shape[-1]).sum())
 
 
 def check_pulse_kernel():
-    """Kernel vs plain version on the card, every case; returns the
-    worst max |diff| and the B=1 glide case's summary (kernel ms, plain
-    ms, bound ms, what bounds it)."""
+    """Kernel vs plain version on the card, every case; returns the worst
+    max |diff| and each case's (B, n, gated, K, kernel ms, plain ms,
+    bound ms, what bounds it)."""
     pulse_accumulate = pulse_kernel.pulse_accumulate
     dev = torch.device("cuda")
     worst = 0.0
-    timed = None
-    for name, f0_np, mask_np in _pulse_cases():
+    rows = {}
+    for name, f0_np, gate_np in _pulse_cases():
         f0 = torch.as_tensor(f0_np, device=dev)
-        if mask_np is None:
-            # main layer: guard=True, bounds derived as the resampler does
-            hi = max(float(f0_np.max()), config.PULSE_FALLBACK_F0)
-            lo = min(float(f0_np[f0_np > 0].min()) if (f0_np > 0).any()
-                     else hi, config.PULSE_FALLBACK_F0)
-            k = config.bucket_overlap(int(min(32, max(
-                3, np.ceil(0.804 * hi / lo) + 2))))
-            spacing = config.bucket_min_spacing(int(SR / hi))
-            onset = pulse._onsets_from_phase(
-                torch.cumsum(f0.double() / SR, dim=-1))
-            tables = pulse._compact_onset_tables(
-                onset, f0, f0 > 1e-6, config.PULSE_FALLBACK_F0, SR,
-                0.02, 1.7, 0.8, True, spacing)
-            shape = (0.02, 1.7, 0.8, True, k)
-        else:
-            # subharmonic layer: guard=False, Rk 1.0, K 8, spacing 8
-            acc = torch.as_tensor(mask_np, device=dev).bool() & (f0 >= 1e-2)
-            phase = torch.cumsum(torch.where(acc, f0.double() / SR, 0.0),
-                                 dim=-1)
-            onset = pulse._onsets_from_phase(phase) & acc
-            tables = pulse._compact_onset_tables(
-                onset, f0, acc, config.PULSE_FALLBACK_F0 * 2.0, SR,
-                0.02, 1.7, 1.0, False, 8)
-            shape = (0.02, 1.7, 1.0, False, 8)
-        got = pulse_accumulate(*tables, *shape)
-        want = pulse.accumulate_pulses_plain(*tables, *shape)
+        gate = None if gate_np is None else torch.as_tensor(gate_np,
+                                                            device=dev)
+        args = pulse_pass_args(f0_np, gate is not None)
+        got = pulse_accumulate(f0, gate, *args)
+        # at phase ties the kernel's exact phase decides
+        want = (exact_phase_plain(f0, args) if name == "ties"
+                else pulse.pulse_pass_plain(f0, gate, *args))
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"pulse kernel {name}: non-finite output")
         err = float((got - want).abs().max())
         if name == "silence" and float(got.abs().max()) != 0.0:
             raise AssertionError("pulse kernel silence: nonzero output")
-        ms = cuda_ms(lambda: pulse_accumulate(*tables, *shape))
+        ms = cuda_ms(lambda: pulse_accumulate(f0, gate, *args))
         # the plain versions may wait on the host
-        p_ms = cuda_ms(lambda: pulse.accumulate_pulses_plain(*tables, *shape),
+        p_ms = cuda_ms(lambda: pulse.pulse_pass_plain(f0, gate, *args),
                        PLAIN_REPS, gap_free=False)
-        batch, n = tables[0].shape
-        m = tables[1].shape[-1]
-        pairs = _pulse_live_pairs(tables[0], tables[1], tables[2], shape[-1])
-        bound, bound_by = bound_ms(4 * (2 * batch * n + 4 * batch * m),
-                                   PULSE_OPS_PER_PAIR * pairs)
-        print(f"pulse_accumulate {name}: B={batch} n={n} M={m} K={shape[-1]}"
-              f" live pairs {pairs} max|diff|={err:.3e} kernel {ms:.5f} ms "
-              f"plain {p_ms:.4f} ms bound {bound:.5f} ms ({bound_by})")
+        batch, n = f0.shape
+        k, spacing = args[-2:]
+        tables = pulse.pulse_pass_tables(f0, gate, *args[:-2], spacing)
+        pairs, onsets = _pulse_work(tables, k)
+        margin = phase_margin(f0, gate, args[0], args[1])
+        # f0 (and gate) read once, out written once
+        bound, bound_by = bound_ms(
+            4 * (2 + (gate is not None)) * batch * n,
+            PULSE_OPS_PER_PAIR * pairs + PULSE_OPS_PER_SAMPLE * batch * n
+            + PULSE_OPS_PER_ONSET * onsets)
+        print(f"pulse_accumulate {name}: B={batch} n={n} "
+              f"{'gated' if gate is not None else 'main'} K={k} "
+              f"spacing={spacing} M={pulse_kernel.table_rows(n, spacing)} "
+              f"onsets {onsets} live pairs {pairs} phase margin "
+              f"{margin:.3e} max|diff|={err:.3e} kernel {ms:.5f} ms plain "
+              f"{p_ms:.4f} ms bound {bound:.6f} ms ({bound_by})")
         if not err <= PULSE_TOL:
             raise AssertionError(f"pulse kernel {name}: max |diff| {err} "
                                  f"> {PULSE_TOL}")
         worst = max(worst, err)
+        rows[name] = (batch, n, gate is not None, k, ms, p_ms, bound,
+                      bound_by)
         if name == "glide_gap":
-            timed = (ms, p_ms, bound, bound_by)
-    return worst, timed
+            prof = profiler_ms(lambda: pulse_accumulate(f0, gate, *args),
+                               "pulse_accumulate_kernel")
+            print(f"pulse_accumulate {name}: torch.profiler device time "
+                  f"{prof:.5f} ms per launch (CUDA events {ms:.5f} ms)")
+    return worst, rows
 
 
 def _voiced_signal(n: int, rng):
@@ -524,8 +632,13 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
             end = hi
     kernels = [e for e in events
                if not e.name.startswith(("Memcpy", "Memset"))]
-    cascade_us = sum(e.time_range.elapsed_us() for e in kernels
-                     if "one_pole_cascade_kernel" in e.name)
+
+    def kernel_us(name):
+        return sum(e.time_range.elapsed_us() for e in kernels
+                   if name in e.name)
+
+    cascade_us = kernel_us("one_pole_cascade_kernel")
+    pulse_us = kernel_us("pulse_accumulate_kernel")
     out = {
         "render_ms": wall_ms / reps,
         "device_busy_ms": busy_us / 1e3 / reps,
@@ -533,17 +646,26 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
         "device_kernels": len(kernels) / reps,
         "cascade_ms": cascade_us / 1e3 / reps,
         "cascade_share": cascade_us / busy_us,
+        "pulse_ms": pulse_us / 1e3 / reps,
+        "pulse_share": pulse_us / busy_us,
+        "pulse_launches": sum("pulse_accumulate_kernel" in e.name
+                              for e in kernels) / reps,
+        "table_build_kernels": sorted({e.name[:80] for e in kernels if any(
+            k in e.name for k in TABLE_BUILD_KERNELS)}),
     }
-    if out["cascade_ms"] <= 0.0:
-        raise AssertionError(f"profile {name}: no cascade kernel on the "
-                             "device")
+    if out["cascade_ms"] <= 0.0 or out["pulse_ms"] <= 0.0:
+        raise AssertionError(f"profile {name}: no cascade or pulse kernel "
+                             "on the device")
     print(f"profile {name} ({reps} warm renders): render "
           f"{out['render_ms']:.3f} ms per note, device busy "
           f"{out['device_busy_ms']:.3f} ms per note, idle share "
           f"{out['idle_share']:.3f}, device kernels per note "
           f"{out['device_kernels']:.1f}, cascade kernel "
           f"{out['cascade_ms']:.4f} ms per note = "
-          f"{out['cascade_share']:.3f} of device busy")
+          f"{out['cascade_share']:.3f} of device busy, pulse kernel "
+          f"{out['pulse_ms']:.4f} ms per note = {out['pulse_share']:.3f} "
+          f"of device busy in {out['pulse_launches']:.1f} launches; "
+          f"table-build kernels: {out['table_build_kernels'] or 'none'}")
     return out
 
 
@@ -560,7 +682,7 @@ def main() -> int:
     print(f"build {', '.join(p.name for p in libs)}: "
           f"{time.perf_counter() - t0:.2f} s")
 
-    err, (ms, p_ms, bound, bound_by) = check_pulse_kernel()
+    err, p_rows = check_pulse_kernel()
     c_err, c_rel, c_rows = check_cascade_kernel()
 
     pulse_kernel.pulse_accumulate.launches = 0
@@ -575,9 +697,14 @@ def main() -> int:
     if c_launches <= 0:
         raise AssertionError("the render never launched the cascade kernel")
     heavy = per_note[HEAVY[0]]
-    if heavy[1] != HEAVY_CASCADE_LAUNCHES:
-        raise AssertionError(f"heavy note: {heavy[1]} cascade launches, "
-                             f"expected {HEAVY_CASCADE_LAUNCHES}")
+    if heavy != (HEAVY_PULSE_LAUNCHES, HEAVY_CASCADE_LAUNCHES):
+        raise AssertionError(f"heavy note: {heavy[0]} pulse and {heavy[1]} "
+                             f"cascade launches, expected "
+                             f"{HEAVY_PULSE_LAUNCHES} and "
+                             f"{HEAVY_CASCADE_LAUNCHES}")
+    if prof["table_build_kernels"]:
+        raise AssertionError("heavy note: the pulse-table build still runs: "
+                             f"{prof['table_build_kernels']}")
     print(f"render: {len(warm)} configs, warm per-note median "
           f"{statistics.median(warm.values()) * 1e3:.1f} ms, max "
           f"{max(warm.values()) * 1e3:.1f} ms; kernel launches: pulse "
@@ -587,11 +714,16 @@ def main() -> int:
                   "nearest are loops of elementwise ops, which the plain "
                   "version is")
     *_, c_ms, c_p_ms, c_bound, c_bound_by = c_rows["hp12_layer"]
+    *_, ms, p_ms, bound, bound_by = p_rows["glide_gap"]
     print(json.dumps({"kernels": [{
         "name": "pulse_accumulate",
         "route": "cuda",
         "source": "goofer_tpu_torch/csrc/pulse_accumulate.cu",
         "replaces": "goofer_tpu/ops/pallas/pulse_kernel.py:61",
+        "note": "the whole pulse pass in one cluster launch, f0 in and "
+                "pulse train out: phase scan, onsets and onset tables "
+                "(goofer_tpu/ops/pulse.py:109, :84, :170) and the "
+                "K-bounded LF accumulation of the Pallas kernel",
         "launches": launches,
         "launches_per_heavy_note": heavy[0],
         "max_abs_err": err,
@@ -601,7 +733,12 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "library_note": no_library,
-        "timed_case": "glide_gap, B=1, n=40000",
+        "timed_case": "glide_gap, B=1, n=40000, main pass",
+        "ms_by_case": {k: v[4] for k, v in p_rows.items()},
+        "plain_ms_by_case": {k: v[5] for k, v in p_rows.items()},
+        "bound_ms_by_case": {k: v[6] for k, v in p_rows.items()},
+        "heavy_note_device_ms": prof["pulse_ms"],
+        "heavy_note_device_share": prof["pulse_share"],
     }, {
         "name": "one_pole_cascade",
         "route": "cuda",

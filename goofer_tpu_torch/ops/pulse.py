@@ -17,9 +17,13 @@ GOOFER.py:672-746).  Reformulated as in goofer_tpu:
   which equals its blocked and Pallas forms whenever K bounds the true
   pulse overlap (the resampler derives K so that it does).
 
-The accumulation is the Hopper kernel ``ops/cuda/pulse_kernel.py``
-(``csrc/pulse_accumulate.cu``); ``accumulate_pulses_plain`` below is its
-plain PyTorch version, which the wrapper runs only for CPU tensors.
+The whole pass, f0 in and pulse train out (phase, onsets, tables and
+accumulation), is one launch of the Hopper kernel
+``ops/cuda/pulse_kernel.py`` (``csrc/pulse_accumulate.cu``) per
+``pulse_train`` and per semitone of ``subharm_pulse_train``;
+``pulse_pass_plain`` below is its plain PyTorch version, the composition
+of ``_onsets_from_phase``, ``_compact_onset_tables`` and
+``accumulate_pulses_plain``, which the wrapper runs only for CPU tensors.
 Everything keeps a leading batch dimension (B, n).
 """
 from __future__ import annotations
@@ -145,8 +149,48 @@ def accumulate_pulses_plain(row: torch.Tensor, pos_tab: torch.Tensor,
     return out
 
 
+def pass_phase(f0: torch.Tensor, gate: torch.Tensor | None, sr: float,
+               scale: float):
+    """A pass's scaled f0 track, its validity and its float64 phase.  Main
+    pass (``gate`` None): the phase advances every sample and f0 > 1e-6 is
+    valid.  Gated pass: the phase advances, onsets fire and f0 counts as
+    valid only where gate > 0, f0 > 0 and the scaled f0 >= 1e-2."""
+    sub = f0 * scale
+    if gate is None:
+        valid = sub > 1e-6
+        return sub, valid, torch.cumsum(sub.double() / sr, dim=-1)
+    valid = (gate > 0) & (f0 > 0) & (sub >= 1e-2)
+    phase = torch.cumsum(torch.where(valid, sub.double() / sr, 0.0), dim=-1)
+    return sub, valid, phase
+
+
+def pulse_pass_tables(f0: torch.Tensor, gate: torch.Tensor | None,
+                      sr: float, scale: float, fallback_f0: float,
+                      Ra: float, Rg: float, Rk: float, guard: bool,
+                      min_spacing: int):
+    """A pass's onsets as compact tables (see _compact_onset_tables)."""
+    sub, valid, phase = pass_phase(f0, gate, sr, scale)
+    onset = _onsets_from_phase(phase)
+    if gate is not None:
+        onset = onset & valid
+    return _compact_onset_tables(onset, sub, valid, fallback_f0, sr,
+                                 Ra, Rg, Rk, guard, min_spacing)
+
+
+def pulse_pass_plain(f0: torch.Tensor, gate: torch.Tensor | None,
+                     sr: float, scale: float, fallback_f0: float,
+                     Ra: float, Rg: float, Rk: float, guard: bool,
+                     max_overlap: int, min_spacing: int) -> torch.Tensor:
+    """Plain PyTorch version of the pulse-pass kernel on (B, n) rows: the
+    onset tables of ``f0 * scale`` (pulse_pass_tables) accumulated by
+    accumulate_pulses_plain."""
+    tables = pulse_pass_tables(f0, gate, sr, scale, fallback_f0, Ra, Rg, Rk,
+                               guard, min_spacing)
+    return accumulate_pulses_plain(*tables, Ra, Rg, Rk, guard, max_overlap)
+
+
 def _as_batch(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(-1, x.shape[-1])
+    return x.reshape(-1, x.shape[-1]).contiguous()
 
 
 def pulse_train(f0: torch.Tensor, sr: float,
@@ -162,15 +206,11 @@ def pulse_train(f0: torch.Tensor, sr: float,
     accumulates f0/sr every sample (voiced or not); each integer crossing
     starts one peak-normalized LF pulse whose period comes from the most
     recent f0 > 1e-6 (initially ``fallback_f0``), clamped to [3, 8192]
-    samples."""
-    shape = f0.shape
-    f0 = _as_batch(f0.float())
-    phase = torch.cumsum(f0.double() / sr, dim=-1)
-    onset = _onsets_from_phase(phase)
-    tables = _compact_onset_tables(onset, f0, f0 > 1e-6, fallback_f0, sr,
-                                   Ra, Rg, Rk, True, min_spacing)
-    out = pulse_accumulate(*tables, Ra, Rg, Rk, True, max_overlap)
-    return out.reshape(shape)
+    samples.  One kernel launch."""
+    out = pulse_accumulate(_as_batch(f0.float()), None, sr, 1.0,
+                           fallback_f0, Ra, Rg, Rk, True, max_overlap,
+                           min_spacing)
+    return out.reshape(f0.shape)
 
 
 def subharm_pulse_train(f0: torch.Tensor, sr: float, mask: torch.Tensor,
@@ -182,30 +222,25 @@ def subharm_pulse_train(f0: torch.Tensor, sr: float, mask: torch.Tensor,
 
     Per semitone ratio, a phase tracker accumulates ``sub_f0/sr`` on
     voiced samples only and fires an LF pulse (Ra=0.02, Rg=1.7, Rk=1) at
-    each integer crossing.  The sum is gated by the voicing mask,
-    peak-normalized globally, then scaled by ``weight``."""
+    each integer crossing: one kernel launch gated by the voicing mask.
+    The sum is gated by the mask, peak-normalized globally, then scaled by
+    ``weight``."""
     f0 = f0.float()
     mask = mask.float()
     if not isinstance(semitones, (list, tuple)):
         semitones = [semitones]
-    active = (mask > 0) & (f0 > 0)
+    # at active samples the reference's forward-filled last_f0 equals the
+    # current f0, and onsets only fire at active samples, so the filled
+    # track is never read where it differs from f0 * ratio
+    f0_rows = _as_batch(f0)
+    gate = _as_batch(torch.broadcast_to(mask, f0.shape))
 
     total = torch.zeros_like(f0)
     for semi in semitones:
         ratio = 2.0 ** (float(semi) / 12.0)
-        # at active samples the reference's forward-filled last_f0 equals
-        # the current f0, and onsets only fire at active samples, so the
-        # filled track is never read where it differs from f0 * ratio
-        sub_f0 = _as_batch(f0 * ratio)
-        accumulating = _as_batch(active) & (sub_f0 >= 1e-2)
-        phase = torch.cumsum(
-            torch.where(accumulating, sub_f0.double() / sr, 0.0), dim=-1)
-        onset = _onsets_from_phase(phase) & accumulating
-        tables = _compact_onset_tables(onset, sub_f0, accumulating,
-                                       fallback_f0 * ratio, sr,
-                                       0.02, 1.7, 1.0, False, min_spacing)
         total = total + pulse_accumulate(
-            *tables, 0.02, 1.7, 1.0, False, max_overlap).reshape(f0.shape)
+            f0_rows, gate, sr, ratio, fallback_f0 * ratio, 0.02, 1.7, 1.0,
+            False, max_overlap, min_spacing).reshape(f0.shape)
 
     total = total * mask
     peak = torch.max(torch.abs(total))

@@ -8,17 +8,29 @@ which that machine does not have):
 
 Pulse tolerance 1e-4: both sides are float32 and the sum holds at most K
 terms of size <= 1, so it leaves room only for CUDA vs ATen
-transcendental rounding.  Cascade tolerance 1e-4 x max|x|: two float32
-scans of the same recurrences in other association orders."""
+transcendental rounding; the onsets themselves must agree, so every case
+keeps its float64 phase more than 1e-9 from an integer (the kernel sums it
+in another association order than torch.cumsum).  Cascade tolerance
+1e-4 x max|x|: two float32 scans of the same recurrences in other
+association orders."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from chip_smoke import CASCADE_TOL, cascade_cases  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CASCADE_TOL,
+    PULSE_TOL,
+    cascade_cases,
+    exact_phase_plain,
+    f0_with_onsets,
+    kernel_edges,
+    phase_margin,
+    pulse_pass_args,
+)
 from goofer_tpu_torch.ops import pulse, scan_iir  # noqa: E402
-from goofer_tpu_torch.ops.cuda import cascade_kernel  # noqa: E402
+from goofer_tpu_torch.ops.cuda import cascade_kernel, pulse_kernel  # noqa: E402
 from goofer_tpu_torch.ops.cuda.cascade_kernel import one_pole_cascade  # noqa: E402
 from goofer_tpu_torch.ops.cuda.pulse_kernel import pulse_accumulate  # noqa: E402
 from goofer_tpu_torch.sampler import render_core  # noqa: E402
@@ -50,20 +62,153 @@ def _f0(n, batch):
     return f0.astype(np.float32)
 
 
+def _hold_pulse_to_plain(f0, gate, args):
+    """One kernel launch against the plain version, off phase ties."""
+    assert phase_margin(f0, gate, args[0], args[1]) > 1e-9
+    before = pulse_accumulate.launches
+    got = pulse_accumulate(f0, gate, *args)
+    want = pulse.pulse_pass_plain(f0, gate, *args)
+    torch.cuda.synchronize()
+    assert pulse_accumulate.launches == before + 1
+    assert got.shape == f0.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=PULSE_TOL, rtol=0.0)
+    return got
+
+
 @pytest.mark.parametrize("guard,rk,k", [(True, 0.8, 16), (False, 1.0, 8)])
 @pytest.mark.parametrize("batch,n", [(1, 40000), (4, 9000)])
 def test_kernel_matches_plain(dev, guard, rk, k, batch, n):
-    f0 = torch.as_tensor(_f0(n, batch), device=dev)
-    onset = pulse._onsets_from_phase(torch.cumsum(f0.double() / SR, dim=-1))
-    tables = pulse._compact_onset_tables(onset, f0, f0 > 1e-6, 160.0, SR,
-                                         0.02, 1.7, rk, guard, 16)
-    before = pulse_accumulate.launches
-    got = pulse_accumulate(*tables, 0.02, 1.7, rk, guard, k)
-    want = pulse.accumulate_pulses_plain(*tables, 0.02, 1.7, rk, guard, k)
+    """Main pass (guard) and gated pass (no guard, a voicing gate)."""
+    f0_np = _f0(n, batch)
+    f0 = torch.as_tensor(f0_np, device=dev)
+    gate = None if guard else torch.as_tensor(
+        (f0_np > 0).astype(np.float32), device=dev)
+    scale = 1.0 if guard else 2.0
+    got = _hold_pulse_to_plain(f0, gate, (SR, scale, 160.0 * scale, 0.02,
+                                          1.7, rk, guard, k, 16))
+    assert float(got.abs().max()) > 0.5
+
+
+def _grid_case(gated, batch, n):
+    """Gliding f0 over 90-600 Hz per row, unvoiced at the start and in
+    the middle; the gated pass adds voicing-gate gaps."""
+    rng = np.random.default_rng(n * 10 + batch + gated)
+    t = np.arange(n) / SR
+    base = rng.uniform(90.0, 600.0, (batch, 1))
+    f0 = base * 2 ** (0.3 * np.sin(2 * np.pi * rng.uniform(1, 6, (batch, 1))
+                                   * t[None]))
+    f0[:, : n // 8] = 0.0
+    f0[:, n // 2: n // 2 + n // 5] = 0.0
+    gate = None
+    if gated:
+        gate = np.ones((batch, n), np.float32)
+        gate[:, n // 3: n // 3 + n // 10] = 0.0
+    return f0.astype(np.float32), gate
+
+
+@pytest.mark.parametrize("spacing", [8, 64, 256])
+@pytest.mark.parametrize("k", [3, 8, 16, 32])
+@pytest.mark.parametrize("n", [1, 2, 5, 1025, 48510, 65537, 262144])
+@pytest.mark.parametrize("batch", [1, 4, 8])
+@pytest.mark.parametrize("gated", [False, True], ids=["main", "gated"])
+def test_pulse_kernel_grid(dev, gated, batch, n, k, spacing):
+    """Rows of 1 to four tiles, B = 1, 4 and 8, K 3-32, spacings 8-256
+    (at 256, pitches above 172 Hz overflow the M table rows)."""
+    f0_np, gate_np = _grid_case(gated, batch, n)
+    args = pulse_pass_args(f0_np, gated)[:-2] + (k, spacing)
+    _hold_pulse_to_plain(
+        torch.as_tensor(f0_np, device=dev),
+        None if gate_np is None else torch.as_tensor(gate_np, device=dev),
+        args)
+
+
+@pytest.mark.parametrize("spacing", [16, 256])
+@pytest.mark.parametrize("gated", [False, True], ids=["main", "gated"])
+def test_pulse_kernel_edges_and_overflow(dev, gated, spacing):
+    """Onsets at the kernel's run, warp, CTA and tile edges, one sample
+    apart there and ~173 samples apart elsewhere: at spacing 256 rows past
+    M occur from the second tile on.  A silent row gives exact zeros."""
+    n = 2 * pulse_kernel.TILE + 777
+    edges = kernel_edges(n)
+    f0 = np.stack([f0_with_onsets(edges, n), np.zeros(n, np.float32)])
+    gate = np.ones_like(f0) if gated else None
+    args = (SR, 1.0, 160.0, 0.02, 1.7, 1.0 if gated else 0.8, not gated, 16,
+            spacing)
+    got = _hold_pulse_to_plain(
+        torch.as_tensor(f0, device=dev),
+        None if gate is None else torch.as_tensor(gate, device=dev), args)
+    assert float(got[1].abs().max()) == 0.0
+    assert (len(edges) > pulse_kernel.table_rows(n, spacing)) == (
+        spacing == 256)
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["main", "gated"])
+def test_pulse_kernel_unstaged_window(dev, gated):
+    """Onsets every 2-3 samples (16-20 kHz): the rows a CTA's samples
+    reach outgrow the WINDOW rows of its shared stage, so the
+    accumulation reads them from L2."""
+    n = 48510
+    rng = np.random.default_rng(5)
+    f0_np = rng.uniform(16000.0, 20000.0, (2, n)).astype(np.float32)
+    f0 = torch.as_tensor(f0_np, device=dev)
+    gate = torch.ones_like(f0) if gated else None
+    args = (SR, 1.0, 160.0, 0.02, 1.7, 1.0 if gated else 0.8, not gated, 16,
+            8)
+    _, seg = pulse_kernel.tile_geometry(n)
+    row = pulse.pulse_pass_tables(f0, gate, *args[:-2], 8)[0]
+    assert int(row[0, seg - 1]) + 1 + 16 > pulse_kernel.WINDOW
+    _hold_pulse_to_plain(f0, gate, args)
+
+
+def test_pulse_kernel_phase_ties(dev):
+    """Constant 220, 441 and 110.25 Hz at 44.1 kHz (the voice goldens'
+    pitches): the phase comes within 1e-13 of an integer every 11, 1 and
+    4 periods.  The kernel fires each crossing once, where the exact sum
+    of its float64 steps crosses."""
+    f0 = torch.stack([torch.full((48510,), hz, device=dev)
+                      for hz in (220.0, 441.0, 110.25)])
+    args = (SR, 1.0, 160.0, 0.02, 1.7, 0.8, True, 8, 128)
+    got = pulse_accumulate(f0, None, *args)
+    want = exact_phase_plain(f0, args)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=PULSE_TOL, rtol=0.0)
+
+
+def test_pulse_kernel_nonfinite_steps(dev):
+    """An inf step fires one onset and ends the row's onsets, a NaN step
+    ends them, as in the plain version's float64 phase."""
+    f0_np, _ = _grid_case(False, 2, 9000)
+    f0_np[0, 3000] = np.inf
+    f0_np[1, 5000] = np.nan
+    f0 = torch.as_tensor(f0_np, device=dev)
+    args = (SR, 1.0, 160.0, 0.02, 1.7, 0.8, True, 16, 16)
+    got = pulse_accumulate(f0, None, *args)
+    want = pulse.pulse_pass_plain(f0, None, *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=PULSE_TOL, rtol=0.0)
+
+
+def test_pulse_kernel_silence(dev):
+    for n in (1, 1025, 262144):
+        f0 = torch.zeros((2, n), device=dev)
+        for gate in (None, torch.ones_like(f0)):
+            got = pulse_accumulate(f0, gate, SR, 1.0, 160.0, 0.02, 1.7, 0.8,
+                                   gate is None, 16, 16)
+            torch.cuda.synchronize()
+            assert float(got.abs().max()) == 0.0
+
+
+def test_pulse_launches_once_per_pass(dev):
+    """One launch per pulse_train pass and per subharmonic semitone; none
+    on the CPU."""
+    f0 = torch.as_tensor(_f0(9000, 1)[0], device=dev)
+    before = pulse_accumulate.launches
+    pulse.pulse_train(f0, SR)
     assert pulse_accumulate.launches == before + 1
-    assert got.shape == (batch, n) and float(got.abs().max()) > 0.5
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0.0)
+    pulse.subharm_pulse_train(f0, SR, (f0 > 0).float(), [12.0, -12.0], 0.5)
+    assert pulse_accumulate.launches == before + 3
+    pulse.pulse_train(f0.cpu(), SR)
+    assert pulse_accumulate.launches == before + 3
 
 
 def test_pulse_train_on_card_matches_cpu(dev):
@@ -74,14 +219,18 @@ def test_pulse_train_on_card_matches_cpu(dev):
 
 
 def test_wrapper_rejects_bad_inputs(dev):
-    row = torch.zeros((1, 64), dtype=torch.int64, device=dev)
-    tab = torch.ones((1, 6), device=dev)
-    with pytest.raises(ValueError, match="int32"):
-        pulse_accumulate(row, tab, tab, tab, tab, 0.02, 1.7, 0.8, True, 8)
-    row = row.int()
-    with pytest.raises(ValueError, match="tables"):
-        pulse_accumulate(row, tab.double(), tab, tab, tab, 0.02, 1.7, 0.8,
-                         True, 8)
+    f0 = torch.full((2, 64), 220.0, device=dev)
+    args = (SR, 1.0, 160.0, 0.02, 1.7, 0.8, True, 8, 16)
+    with pytest.raises(ValueError, match="float32"):
+        pulse_accumulate(f0.double(), None, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        pulse_accumulate(f0.t().contiguous().t(), None, *args)
+    with pytest.raises(ValueError, match=r"\(B, n\)"):
+        pulse_accumulate(f0[0], None, *args)
+    with pytest.raises(ValueError, match=r"\(B, n\)"):
+        pulse_accumulate(f0, torch.ones((2, 63), device=dev), *args)
+    with pytest.raises(ValueError, match="gate"):
+        pulse_accumulate(f0, torch.ones((2, 64), device=dev).half(), *args)
 
 
 @pytest.mark.parametrize("case", cascade_cases(), ids=lambda c: c[0])

@@ -33,10 +33,10 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "clean"
 
 
-def _tables(device="cpu"):
-    row = torch.zeros((1, 64), dtype=torch.int32, device=device)
-    tab = torch.ones((1, 6), dtype=torch.float32, device=device)
-    return row, tab, tab, tab, tab
+def _pulse_args(device="cpu"):
+    """A (1, 64) main-pass f0 row and the pass's scalars."""
+    f0 = torch.full((1, 64), 220.0, device=device)
+    return f0, None, 44100.0, 1.0, 160.0, 0.02, 1.7, 0.8, True, 8, 16
 
 
 def _no_nvcc(monkeypatch, tmp_path, module):
@@ -57,8 +57,7 @@ def test_pulse_wrapper_never_falls_back(monkeypatch, tmp_path):
     _no_nvcc(monkeypatch, tmp_path, pulse_kernel)
     before = pulse_kernel.pulse_accumulate.launches
     with pytest.raises(RuntimeError, match="nvcc"):
-        pulse_kernel.pulse_accumulate(*_tables("meta"), 0.02, 1.7, 0.8,
-                                      True, 8)
+        pulse_kernel.pulse_accumulate(*_pulse_args("meta"))
     assert pulse_kernel.pulse_accumulate.launches == before
 
 
@@ -81,14 +80,18 @@ def test_cascade_wrapper_rejects_other_devices():
 
 def test_pulse_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="expected"):
-        pulse_kernel.pulse_accumulate(*_tables("meta"), 0.02, 1.7, 0.8,
-                                      True, 8)
+        pulse_kernel.pulse_accumulate(*_pulse_args("meta"))
 
 
 def test_pulse_wrapper_cpu_runs_plain():
-    row, *tabs = _tables()
-    out = pulse_kernel.pulse_accumulate(row, *tabs, 0.02, 1.7, 0.8, True, 8)
+    from goofer_tpu_torch.ops.pulse import pulse_pass_plain
+
+    before = pulse_kernel.pulse_accumulate.launches
+    args = _pulse_args()
+    out = pulse_kernel.pulse_accumulate(*args)
     assert out.shape == (1, 64) and out.dtype == torch.float32
+    assert torch.equal(out, pulse_pass_plain(*args))
+    assert pulse_kernel.pulse_accumulate.launches == before
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

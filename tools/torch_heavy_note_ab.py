@@ -11,10 +11,15 @@ given, a child process imports the package from that root (building its
 kernels into that root's ``build/``), renders the note through the CLI on
 CUDA twice to warm up, then ``--reps`` times on the host clock (each
 render ends with the WAV written, so it is synchronised), and profiles 5
-more with chip_smoke.profile_heavy.  It prints one JSON line per root:
+more with chip_smoke.profile_heavy.  Then it times one ``pulse_train``
+pass on the heavy note's main-layer f0, n and K (recorded from a render):
+device ms per pass over 100 passes between one pair of CUDA events
+(behind a spin, but the host may fall behind it: whatever the device
+waits is part of the pass), and from torch.profiler the summed device
+time and the device kernels per pass.  It prints one JSON line per root:
 median and all render ms, device busy ms per note, idle share, device
-kernels per note and the cascade kernel's device ms per note.  Imports
-nothing of JAX or goofer_tpu.
+kernels per note, the kernels' device ms per note and the pulse pass.
+Imports nothing of JAX or goofer_tpu.
 """
 from __future__ import annotations
 
@@ -64,9 +69,50 @@ def child(root: Path, reps: int) -> dict:
             if rep >= 2:
                 times.append((time.perf_counter() - t0) * 1e3)
         prof = smoke.profile_heavy(tmp)
+        pass_ = pulse_pass(smoke, argv)
     return {"root": str(root), "render_ms_median": statistics.median(times),
             "render_ms": times, **{f"profiled_{k}": v
-                                   for k, v in prof.items()}}
+                                   for k, v in prof.items()}, **pass_}
+
+
+def pulse_pass(smoke, argv, reps: int = 100) -> dict:
+    """Time the heavy note's main-layer pulse_train pass on its own."""
+    import torch
+    from goofer_tpu_torch import cli
+    from goofer_tpu_torch.engine import synth
+    from goofer_tpu_torch.ops import pulse
+
+    calls = []
+    real = synth.pulse_train
+
+    def record(f0, sr, **kw):
+        calls.append((f0.clone(), sr, kw))
+        return real(f0, sr, **kw)
+
+    synth.pulse_train = record
+    try:
+        if cli.main(argv) != 0:
+            raise AssertionError("pulse pass: cli rc != 0")
+    finally:
+        synth.pulse_train = real
+    f0, sr, kw = calls[0]
+
+    def one():
+        return pulse.pulse_train(f0, sr, **kw)
+
+    ms = smoke.cuda_ms(one, reps, gap_free=False)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            one()
+        torch.cuda.synchronize()
+    kernels = [e for e in smoke.device_events(prof)
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    return {"pulse_pass_n": int(f0.shape[-1]), "pulse_pass_args": kw,
+            "pulse_pass_ms": ms,
+            "pulse_pass_device_ms": sum(e.time_range.elapsed_us()
+                                        for e in kernels) / 1e3 / reps,
+            "pulse_pass_kernels": len(kernels) / reps}
 
 
 def main() -> int:
