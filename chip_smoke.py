@@ -34,7 +34,25 @@ Phases (any failure raises and the script exits nonzero):
    ms, idle share, device kernels per note, each kernel's device ms per
    note and its share of device busy; no scan or searchsorted kernel of
    the old pulse-table build may appear;
-8. print the kernel summary as one JSON line, then the device line.
+8. check both kernels at the phrase renderer's shapes (pulse main pass
+   at B=50, n=24696 and B=80, n=33075 with K=32, the gated sg pass at
+   B=80; cascade HP12 and LP4 at B=80 with per-row coefficients and the
+   fry pair's 160 rows), same limits, and time them;
+9. render three phrases through goofer_tpu_torch.sampler.phrase
+   .render_phrase on CUDA at full width (44.1 kHz, n_fft 1024, hop 256,
+   the voice source): (a) 97 plain notes, 60 s; (b) 80 notes of the heavy
+   11-flag stack, 60 s; (c) 40 notes of random length.  Each group of a
+   phrase must launch each kernel once per pass (as many launches as one
+   note of the group alone), (a) must be 2 groups, (c) must bucket into
+   fewer groups than notes, pcm16 output must be int16, every note finite
+   and non-silent; rows of (a) and (b) are held to the same note rendered
+   alone with the same (seed, index) key, (c) bucketed to unbucketed
+   (5e-3 x peak on all but 0.1% of samples and 0.1 dB LSD with the noise
+   stems zeroed; LSD <= max(1 dB, seed-to-seed + 0.5 dB) with noise on);
+   print warm wall time with and without the copy to the host, x
+   realtime, device busy, idle share and device kernels per phrase, and
+   the 97 notes rendered one by one;
+10. print the kernel summary as one JSON line, then the device line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
 launches between one pair of CUDA events, enqueued behind a spin kernel
@@ -64,6 +82,8 @@ import torch
 from goofer_tpu_torch import cli, config
 from goofer_tpu_torch.ops import pulse, scan_iir
 from goofer_tpu_torch.ops.cuda import _build, cascade_kernel, pulse_kernel
+from goofer_tpu_torch.sampler import phrase
+from goofer_tpu_torch.sampler.render_core import render_note
 from goofer_tpu_torch.sampler.resampler import GooferResampler
 from goofer_tpu_torch.utils.audio_io import read_wav
 from goofer_tpu_torch.utils.metrics import lsd_db
@@ -102,7 +122,14 @@ HEAVY = ("heavy_stack", "C4", 100,
 HEAVY_CASCADE_LAUNCHES = 5
 HEAVY_PULSE_LAUNCHES = 4
 SR = 44100
+HOP = 256
 N_CHECK = 40000
+# the phrases' notes: 60 + 500 ms (50 of them), 60 + 690 or 750 ms (80)
+N_PHRASE_SHORT = 24696
+N_PHRASE_LONG = 33075
+PHRASE_SCALE = ("C4", "D4", "E4", "F4", "G4", "A4", "B4", "C5", "A3", "G3")
+PHRASE_SCALE_HZ = (261.63, 293.66, 329.63, 349.23, 392.0, 440.0, 493.88,
+                   523.25, 220.0, 196.0)
 # the voice source's notes, the longest on the main path
 N_LONG = 48510
 # launches per kernel timing; the plain versions run tens to thousands of
@@ -228,11 +255,13 @@ def kernel_edges(n: int) -> list[int]:
     return sorted(x for x in edges if 0 <= x < n)
 
 
-def pulse_pass_args(f0_np: np.ndarray, gated: bool) -> tuple:
+def pulse_pass_args(f0_np: np.ndarray, gated: bool,
+                    max_overlap: int | None = None) -> tuple:
     """The pass's scalars after f0 and gate: (sr, scale, fallback_f0, Ra,
     Rg, Rk, guard, K, min_spacing).  Main pass as the resampler derives
-    them for the main layer (K and spacing from the pitch range);
-    gated pass as the sg layer's semitone +12 (ratio 2, K 8, spacing 8)."""
+    them for the main layer (K and spacing from the pitch range, or the
+    ``max_overlap`` a group was harmonized to); gated pass as the sg
+    layer's semitone +12 (ratio 2, K 8, spacing 8)."""
     if gated:
         return (SR, 2.0, config.PULSE_FALLBACK_F0 * 2.0, 0.02, 1.7, 1.0,
                 False, 8, 8)
@@ -241,8 +270,8 @@ def pulse_pass_args(f0_np: np.ndarray, gated: bool) -> tuple:
              config.PULSE_FALLBACK_F0)
     lo = min(float(voiced.min()) if voiced.size else hi,
              config.PULSE_FALLBACK_F0)
-    k = config.bucket_overlap(int(min(32, max(3, np.ceil(0.804 * hi / lo)
-                                              + 2))))
+    k = max_overlap or config.bucket_overlap(
+        int(min(32, max(3, np.ceil(0.804 * hi / lo) + 2))))
     spacing = config.bucket_min_spacing(int(SR / hi))
     return (SR, 1.0, config.PULSE_FALLBACK_F0, 0.02, 1.7, 0.8, True, k,
             spacing)
@@ -283,9 +312,36 @@ def exact_phase_plain(f0: torch.Tensor, args) -> torch.Tensor:
     return pulse.accumulate_pulses_plain(*tables, ra, rg, rk, guard, k)
 
 
+def phrase_f0(batch: int, n: int) -> np.ndarray:
+    """(B, n) f0 rows as a phrase group's: row b sings scale note b
+    (G3-C5) detuned by the phrases' t flags, with a 5.3 Hz, 1% vibrato
+    behind an unvoiced head.  (At 5 Hz the vibrato's period is 8820
+    samples exactly, its phase cancels over each and the rows run into
+    phase ties, where only exact_phase_plain holds the kernel.)"""
+    t = np.arange(n) / SR
+    hz = np.array([PHRASE_SCALE_HZ[b % 10] * 2 ** ((b % 7 - 3) / 120)
+                   for b in range(batch)])[:, None]
+    f0 = hz * (1.0 + 0.01 * np.sin(2 * np.pi * 5.3 * t + np.arange(
+        batch)[:, None]))
+    f0[:, : n // 12] = 0.0
+    return f0.astype(np.float32)
+
+
+def phrase_pulse_cases():
+    """(name, f0 (B, n), gate or None, K) at the phrase renderer's shapes:
+    the main pass of the 50 short and of the 80 long notes at the K = 32
+    a heavy group is harmonized to, and the sg layer's gated pass."""
+    short = phrase_f0(50, N_PHRASE_SHORT)
+    long = phrase_f0(80, N_PHRASE_LONG)
+    return [("phrase_b50", short, None, 32),
+            ("phrase_b80", long, None, 32),
+            ("phrase_sg_b80", long, (long > 0).astype(np.float32), None)]
+
+
 def _pulse_cases():
-    """(name, f0 (B, n), gate or None) at the note render's shapes; the
-    constant and glide cases follow tests/test_pallas_pulse.py."""
+    """(name, f0 (B, n), gate or None, K or None for the derived one) at
+    the note render's shapes; the constant and glide cases follow
+    tests/test_pallas_pulse.py."""
     n = N_CHECK
     t = np.arange(n) / SR
     cases = []
@@ -319,7 +375,7 @@ def _pulse_cases():
     ties = np.stack([np.full(N_LONG, hz, np.float32)
                      for hz in (220.0, 441.0, 110.25)])
     cases.append(("ties", ties, None))
-    return cases
+    return [c + (None,) for c in cases]
 
 
 def _pulse_work(tables, max_overlap) -> tuple[int, int]:
@@ -340,7 +396,7 @@ def _pulse_work(tables, max_overlap) -> tuple[int, int]:
     return live, int(torch.clamp(row[:, -1] + 1, max=pos_tab.shape[-1]).sum())
 
 
-def check_pulse_kernel():
+def check_pulse_kernel(cases):
     """Kernel vs plain version on the card, every case; returns the worst
     max |diff| and each case's (B, n, gated, K, kernel ms, plain ms,
     bound ms, what bounds it)."""
@@ -348,11 +404,11 @@ def check_pulse_kernel():
     dev = torch.device("cuda")
     worst = 0.0
     rows = {}
-    for name, f0_np, gate_np in _pulse_cases():
+    for name, f0_np, gate_np, k_over in cases:
         f0 = torch.as_tensor(f0_np, device=dev)
         gate = None if gate_np is None else torch.as_tensor(gate_np,
                                                             device=dev)
-        args = pulse_pass_args(f0_np, gate is not None)
+        args = pulse_pass_args(f0_np, gate is not None, k_over)
         got = pulse_accumulate(f0, gate, *args)
         # at phase ties the kernel's exact phase decides
         want = (exact_phase_plain(f0, args) if name == "ties"
@@ -372,6 +428,11 @@ def check_pulse_kernel():
         tables = pulse.pulse_pass_tables(f0, gate, *args[:-2], spacing)
         pairs, onsets = _pulse_work(tables, k)
         margin = phase_margin(f0, gate, args[0], args[1])
+        if name != "ties" and not margin > 1e-9:
+            raise AssertionError(
+                f"pulse kernel {name}: the case's phase comes within "
+                f"{margin:.1e} of an integer, where the plain version's "
+                "float64 cumsum does not decide the onset")
         # f0 (and gate) read once, out written once
         bound, bound_by = bound_ms(
             4 * (2 + (gate is not None)) * batch * n,
@@ -454,7 +515,33 @@ def cascade_cases():
     return cases
 
 
-def check_cascade_kernel():
+def phrase_cascade_cases():
+    """(name, x (B, n), alpha, order, btype) at the phrase renderer's
+    shapes: the 80 long notes' su/sj layer highpass (order 12) and st
+    tension lowpass (order 4), each row with its own (B, n) coefficients
+    from its own f0, and the fry pair of 80 notes, 160 rows sharing the
+    200 Hz highpass's one (n,) coefficient row."""
+    n = N_PHRASE_LONG
+    rng = np.random.default_rng(2)
+    f0 = phrase_f0(80, n)
+    phase = np.cumsum(f0 / SR, axis=1)
+    x = (np.sin(2 * np.pi * phase) ** 15 * 0.8
+         + 0.05 * rng.standard_normal(f0.shape)).astype(np.float32)
+    f0_t = torch.as_tensor(f0)
+    hp = scan_iir.butter_alpha(torch.clamp(f0_t, min=120.0), n, SR, 1.0,
+                               "highpass").numpy()
+    lp = scan_iir.butter_alpha(f0_t, n, SR, 2.0 - 0.3 * 0.75,
+                               "lowpass").numpy()
+    fry = scan_iir.butter_alpha(torch.ones(n), n, SR, 200.0,
+                                "highpass").numpy()
+    pair = np.concatenate(
+        [x, 0.1 * rng.standard_normal(x.shape).astype(np.float32)])
+    return [("phrase_hp12_b80", x, hp, 12, "highpass"),
+            ("phrase_lp4_b80", x, lp, 4, "lowpass"),
+            ("phrase_hp6_fry_b160", pair, fry, 6, "highpass")]
+
+
+def check_cascade_kernel(cases):
     """Kernel vs plain version on the card, every case; returns the worst
     max |diff|, the worst max |diff| / max|x| and each case's (B, n,
     order, btype, kernel ms, plain ms, bound ms, what bounds it)."""
@@ -462,7 +549,7 @@ def check_cascade_kernel():
     dev = torch.device("cuda")
     worst = worst_rel = 0.0
     rows = {}
-    for name, x_np, alpha_np, order, btype in cascade_cases():
+    for name, x_np, alpha_np, order, btype in cases:
         x = torch.as_tensor(x_np, device=dev)
         alpha = torch.as_tensor(alpha_np, device=dev)
         got = cascade(x, alpha, order, btype)
@@ -603,6 +690,21 @@ def check_heavy(tmp: Path):
                              f"{budget}")
 
 
+def device_busy(prof):
+    """(device busy us: the union of the profile's device events' spans;
+    its kernel events, copies and memsets left out)."""
+    events = device_events(prof)
+    busy_us = 0.0
+    end = float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in events):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return busy_us, [e for e in events
+                     if not e.name.startswith(("Memcpy", "Memset"))]
+
+
 def profile_heavy(tmp: Path, reps: int = 5) -> dict:
     """torch.profiler (device activity only) over ``reps`` warm
     heavy-stack renders through the CLI on CUDA.  Device busy is the
@@ -622,16 +724,7 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
                 raise AssertionError(f"profile {name}: cli rc != 0")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
-    busy_us = 0.0
-    end = float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in events):
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    kernels = [e for e in events
-               if not e.name.startswith(("Memcpy", "Memset"))]
+    busy_us, kernels = device_busy(prof)
 
     def kernel_us(name):
         return sum(e.time_range.elapsed_us() for e in kernels
@@ -669,6 +762,247 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
     return out
 
 
+def phrase_notes(src: str) -> dict:
+    """The three phrases, shaped as the JAX package's bench.py sings them
+    (there from a synthetic source): (a) 50 x (60 + 500) ms with t flags
+    and 47 x (60 + 750) ms with B flags over a ten-note scale, 60 s;
+    (b) 80 x (60 + 690) ms of the heavy 11-flag stack, 60 s; (c) 40 notes
+    of random length 300-899 ms."""
+    spec, scale = phrase.NoteSpec, PHRASE_SCALE
+    a = [spec(src, scale[i % 10], length=500, consonant=60,
+              flags=f"t{(i % 7 - 3) * 10}") for i in range(50)]
+    a += [spec(src, scale[(i * 3) % 10], length=750, consonant=60,
+               flags=f"B{(i % 5 - 2) * 10}") for i in range(47)]
+    b = [spec(src, scale[i % 10], length=690, consonant=60,
+              flags=HEAVY[3] + f"t{(i % 7 - 3) * 10}") for i in range(80)]
+    rng = np.random.default_rng(1)
+    c = [spec(src, scale[int(rng.integers(10))],
+              length=int(rng.integers(300, 900)), consonant=60,
+              flags=f"t{int(rng.integers(-30, 30))}") for _ in range(40)]
+    return {"a": a, "b": b, "c": c}
+
+
+def _audio_s(notes) -> float:
+    return sum((n.consonant + n.length) / 1000.0 for n in notes)
+
+
+def _render_planned(notes, bucket, quiet: bool, seed: int = 0):
+    """render_phrase's float output from its own parts, with the noise
+    strengths zeroed when ``quiet`` (the planner's scalars are copied:
+    its memo keeps the originals)."""
+    planned, _ = phrase.plan_phrase(notes, bucket=bucket)
+    outs = [None] * len(planned)
+    for pl in planned:
+        if quiet:
+            pl.scalars = dict(pl.scalars, uv_strength=0.0,
+                              breath_strength=0.0)
+    for (rs, _), members in phrase.group_planned(planned).items():
+        rows = phrase.render_group(rs, members, seed, False,
+                                   torch.device("cuda")).cpu().numpy()
+        for j, m in enumerate(members):
+            outs[m.index] = rows[j, :int(m.scalars["n_true"])]
+    return planned, outs
+
+
+def _hold(name, got, want, quiet: bool, floor: float = 0.0):
+    """The parity budgets: noise stems zeroed, 5e-3 x peak on all but 0.1%
+    of samples (a pulse onset whose phase sits within rounding of an
+    integer may land one sample off) and 0.1 dB LSD; noise on, LSD <=
+    max(1 dB, seed-to-seed + 0.5 dB)."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {got.shape} vs {want.shape} or "
+                             "non-finite")
+    d = np.abs(got - want) / (np.abs(want).max() + 1e-12)
+    lsd = lsd_db(got, want, SR)
+    if quiet:
+        if float((d > 5e-3).mean()) > 1e-3 or not lsd < 0.1:
+            raise AssertionError(f"{name}: max|diff|/peak {d.max():.3e}, "
+                                 f"LSD {lsd:.4f} dB with noise zeroed")
+    elif not lsd <= max(1.0, floor + 0.5):
+        raise AssertionError(f"{name}: LSD {lsd:.3f} dB over max(1, "
+                             f"{floor:.3f} + 0.5)")
+    return float(d.max()), lsd
+
+
+def check_phrase_rows(name, notes, picks):
+    """Rows ``picks`` of the phrase against the same notes rendered alone
+    through render_note with the same (seed, index) key; returns the worst
+    (max|diff|/peak, LSD) with the noise zeroed and with it on."""
+    dev = torch.device("cuda")
+    worst = {}
+    for quiet in (True, False):
+        planned, outs = _render_planned(notes, "auto", quiet)
+        errs = []
+        for i in picks:
+            pl = planned[i]
+            alone = render_note(pl.rs, pl.arrays, pl.scalars, (0, i),
+                                dev).cpu().numpy()
+            floor = 0.0
+            if not quiet:
+                floor = lsd_db(render_note(pl.rs, pl.arrays, pl.scalars,
+                                           (1, i), dev).cpu().numpy(),
+                               alone, SR)
+            errs.append(_hold(f"phrase {name} note {i}", outs[i], alone,
+                              quiet, floor))
+        worst[quiet] = tuple(max(e[j] for e in errs) for j in (0, 1))
+    print(f"phrase {name}: rows {list(picks)} vs the note alone: noise "
+          f"zeroed max|diff|/peak {worst[True][0]:.3e} LSD "
+          f"{worst[True][1]:.4f} dB; noise on max|diff|/peak "
+          f"{worst[False][0]:.3e} LSD {worst[False][1]:.4f} dB")
+    return worst
+
+
+def check_phrase_buckets(name, notes):
+    """The bucketed phrase against bucket=False over every note's true
+    extent, noise zeroed and on."""
+    worst = {}
+    for quiet in (True, False):
+        exact = _render_planned(notes, False, quiet)[1]
+        padded = _render_planned(notes, True, quiet)[1]
+        floor = 0.0
+        if not quiet:
+            other = _render_planned(notes, False, quiet, seed=1)[1]
+            floor = min(lsd_db(o, e, SR) for o, e in zip(other, exact))
+        errs = [_hold(f"phrase {name} note {i} bucketed", p, e, quiet, floor)
+                for i, (p, e) in enumerate(zip(padded, exact))]
+        worst[quiet] = tuple(max(e[j] for e in errs) for j in (0, 1))
+    print(f"phrase {name}: bucketed vs exact, {len(notes)} notes: noise "
+          f"zeroed max|diff|/peak {worst[True][0]:.3e} LSD "
+          f"{worst[True][1]:.4f} dB; noise on max|diff|/peak "
+          f"{worst[False][0]:.3e} LSD {worst[False][1]:.4f} dB")
+    return worst
+
+
+def _median_ms(fn, reps: int, warm: int = 2) -> float:
+    """Median wall ms of ``fn`` over ``reps`` runs after ``warm`` unmeasured
+    ones, the device synchronized around each."""
+    times = []
+    for rep in range(warm + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if rep >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phrase_slice(tmp: Path) -> dict:
+    """Drive render_phrase on CUDA over the three phrases, the kernels'
+    launch counters set to 0 just before and read just after, then check
+    structure (groups, launches) and outputs and take the numbers.
+    Returns per phrase a dict of them, and the path's launches under
+    "launches"."""
+    dev = torch.device("cuda")
+    src = str(tmp / "voice.wav")
+    phrases = phrase_notes(src)
+    pulse_kernel.pulse_accumulate.launches = 0
+    cascade_kernel.one_pole_cascade.launches = 0
+    pcms, launched = {}, {}
+    for name, notes in phrases.items():
+        before = _launches()
+        pcms[name] = phrase.render_phrase(notes, pcm16=True)
+        launched[name] = [b - a for a, b in zip(before, _launches())]
+    out = {"launches": _launches()}
+
+    for name, notes in phrases.items():
+        audio_s = _audio_s(notes)
+        planned, _ = phrase.plan_phrase(notes)
+        groups = phrase.group_planned(planned)
+        # launches one note of each group makes alone
+        want = [0, 0]
+        for (rs, _), members in groups.items():
+            m = members[0]
+            before = _launches()
+            render_note(rs, m.arrays, m.scalars, 0, dev)
+            want = [w + b - a for w, a, b in zip(want, before, _launches())]
+        got, pcm = launched[name], pcms[name]
+        if got != want:
+            raise AssertionError(
+                f"phrase {name}: {got[0]} pulse and {got[1]} cascade "
+                f"launches for {len(groups)} groups, expected {want}: one "
+                "per pass per group")
+        if name == "a" and len(groups) != 2:
+            raise AssertionError(f"phrase a: {len(groups)} groups, not 2")
+        if name == "c" and not (len(groups) < len(notes)
+                                and all(pl.rs.masked for pl in planned)):
+            raise AssertionError(f"phrase c: {len(groups)} groups of "
+                                 f"{len(notes)} notes, not bucketed")
+        floats = phrase.render_phrase(notes)
+        for i, (q, y, spec) in enumerate(zip(pcm, floats, notes)):
+            n_want = int(0.06 * SR) + int(spec.length / 1000 * SR)
+            if q.dtype != np.int16 or q.shape != (n_want,):
+                raise AssertionError(f"phrase {name} note {i}: pcm16 gave "
+                                     f"{q.dtype} {q.shape}, want {n_want}")
+            if not np.isfinite(y).all() or not np.abs(q).max() > 32:
+                raise AssertionError(f"phrase {name} note {i}: silent or "
+                                     "non-finite")
+        full_ms = _median_ms(lambda: phrase.render_phrase(notes, pcm16=True),
+                             7)
+        nofetch_ms = _median_ms(
+            lambda: phrase.render_phrase(notes, pcm16=True, fetch=False), 7)
+        reps = 3
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                phrase.render_phrase(notes, pcm16=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_us, kernels = device_busy(prof)
+
+        def kernel_ms(kname):
+            return sum(e.time_range.elapsed_us() for e in kernels
+                       if kname in e.name) / 1e3 / reps
+
+        out[name] = {
+            "notes": len(notes), "audio_s": audio_s, "groups": len(groups),
+            "batch_sizes": [len(m) for m in groups.values()],
+            "pulse_launches": got[0], "cascade_launches": got[1],
+            "full_ms": full_ms, "nofetch_ms": nofetch_ms,
+            "x_realtime": audio_s * 1e3 / full_ms,
+            "x_realtime_nofetch": audio_s * 1e3 / nofetch_ms,
+            "device_busy_ms": busy_us / 1e3 / reps,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "device_kernels": len(kernels) / reps,
+            "pulse_ms": kernel_ms("pulse_accumulate_kernel"),
+            "cascade_ms": kernel_ms("one_pole_cascade_kernel"),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+        }
+        r = out[name]
+        print(f"phrase {name}: {r['notes']} notes, {audio_s:.2f} s of audio, "
+              f"{r['groups']} groups of {r['batch_sizes']} notes, launches "
+              f"per phrase: pulse {got[0]} cascade {got[1]}; warm "
+              f"{full_ms:.3f} ms ({r['x_realtime']:.1f} x realtime), without "
+              f"the copy to the host {nofetch_ms:.3f} ms "
+              f"({r['x_realtime_nofetch']:.1f} x); profiled: device busy "
+              f"{r['device_busy_ms']:.3f} ms per phrase, idle share "
+              f"{r['idle_share']:.3f}, device kernels per phrase "
+              f"{r['device_kernels']:.1f}, pulse kernel {r['pulse_ms']:.4f} "
+              f"ms, cascade kernel {r['cascade_ms']:.4f} ms; peak device "
+              f"memory so far {r['peak_mib']:.0f} MiB")
+
+    check_phrase_rows("a", phrases["a"], (0, 13, 49, 50, 96))
+    check_phrase_rows("b", phrases["b"], (0, 7, 79))
+    check_phrase_buckets("c", phrases["c"])
+
+    # the 97 notes of (a) one by one, in this process
+    planned, _ = phrase.plan_phrase(phrases["a"])
+
+    def one_by_one():
+        for pl in planned:
+            render_note(pl.rs, pl.arrays, pl.scalars, (0, pl.index),
+                        dev).cpu()
+
+    single_ms = _median_ms(one_by_one, 3, warm=1)
+    out["a"]["one_by_one_ms"] = single_ms
+    print(f"phrase a: its 97 notes one by one through render_note "
+          f"{single_ms:.3f} ms ({out['a']['audio_s'] * 1e3 / single_ms:.1f} "
+          f"x realtime), {single_ms / out['a']['full_ms']:.1f} x the "
+          "phrase render")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -682,8 +1016,9 @@ def main() -> int:
     print(f"build {', '.join(p.name for p in libs)}: "
           f"{time.perf_counter() - t0:.2f} s")
 
-    err, p_rows = check_pulse_kernel()
-    c_err, c_rel, c_rows = check_cascade_kernel()
+    err, p_rows = check_pulse_kernel(_pulse_cases() + phrase_pulse_cases())
+    c_err, c_rel, c_rows = check_cascade_kernel(cascade_cases()
+                                                + phrase_cascade_cases())
 
     pulse_kernel.pulse_accumulate.launches = 0
     cascade_kernel.one_pole_cascade.launches = 0
@@ -692,6 +1027,12 @@ def main() -> int:
         launches, c_launches = _launches()
         check_heavy(Path(tmp))
         prof = profile_heavy(Path(tmp))
+        phrases = phrase_slice(Path(tmp))
+    ph_launches, ph_c_launches = phrases.pop("launches")
+    if ph_launches <= 0 or ph_c_launches <= 0:
+        raise AssertionError(f"the phrases launched the pulse kernel "
+                             f"{ph_launches} and the cascade kernel "
+                             f"{ph_c_launches} times")
     if launches <= 0:
         raise AssertionError("the render never launched the pulse kernel")
     if c_launches <= 0:
@@ -715,6 +1056,7 @@ def main() -> int:
                   "version is")
     *_, c_ms, c_p_ms, c_bound, c_bound_by = c_rows["hp12_layer"]
     *_, ms, p_ms, bound, bound_by = p_rows["glide_gap"]
+    print(json.dumps({"phrases": phrases}))
     print(json.dumps({"kernels": [{
         "name": "pulse_accumulate",
         "route": "cuda",
@@ -724,7 +1066,11 @@ def main() -> int:
                 "pulse train out: phase scan, onsets and onset tables "
                 "(goofer_tpu/ops/pulse.py:109, :84, :170) and the "
                 "K-bounded LF accumulation of the Pallas kernel",
-        "launches": launches,
+        "launches": launches + ph_launches,
+        "launches_note_path": launches,
+        "launches_phrase_path": ph_launches,
+        "launches_per_phrase": {k: v["pulse_launches"]
+                                for k, v in phrases.items()},
         "launches_per_heavy_note": heavy[0],
         "max_abs_err": err,
         "ms": ms,
@@ -737,6 +1083,7 @@ def main() -> int:
         "ms_by_case": {k: v[4] for k, v in p_rows.items()},
         "plain_ms_by_case": {k: v[5] for k, v in p_rows.items()},
         "bound_ms_by_case": {k: v[6] for k, v in p_rows.items()},
+        "phrase_device_ms": {k: v["pulse_ms"] for k, v in phrases.items()},
         "heavy_note_device_ms": prof["pulse_ms"],
         "heavy_note_device_share": prof["pulse_share"],
     }, {
@@ -746,7 +1093,11 @@ def main() -> int:
         "replaces": "goofer_tpu/ops/scan_iir.py:41",
         "note": "replaces non-Pallas JAX code: first_order_recurrence_pos, "
                 "the stage solver of dynamic_one_pole_cascade",
-        "launches": c_launches,
+        "launches": c_launches + ph_c_launches,
+        "launches_note_path": c_launches,
+        "launches_phrase_path": ph_c_launches,
+        "launches_per_phrase": {k: v["cascade_launches"]
+                                for k, v in phrases.items()},
         "launches_per_heavy_note": heavy[1],
         "max_abs_err": c_err,
         "max_rel_err": c_rel,
@@ -758,6 +1109,9 @@ def main() -> int:
         "library_note": no_library,
         "timed_case": "hp12_layer, B=1, n=40000, order 12",
         "ms_by_case": {k: v[4] for k, v in c_rows.items()},
+        "plain_ms_by_case": {k: v[5] for k, v in c_rows.items()},
+        "bound_ms_by_case": {k: v[6] for k, v in c_rows.items()},
+        "phrase_device_ms": {k: v["cascade_ms"] for k, v in phrases.items()},
         "heavy_note_device_ms": prof["cascade_ms"],
         "heavy_note_device_share": prof["cascade_share"],
     }]}))

@@ -76,6 +76,41 @@ def bucket_min_spacing(s: int) -> int:
     return out
 
 
+def bucket_len(n: int, base: int = 4096, ratio: float = 1.5,
+               quantum: int = 1024) -> int:
+    """Round a sample count up to a geometric length bucket (~ratio step,
+    quantized), so notes of nearby lengths share one batched pass.
+    Padding costs only masked device work: the phrase renderer slices
+    outputs back to their true extents on the device."""
+    b = base
+    while b < n:
+        b = -(-int(b * ratio) // quantum) * quantum
+    return b
+
+
+def bucket_frames(n_bucket: int, hop: int) -> int:
+    """Envelope-frame bucket derived from a sample bucket: covers any true
+    frame count a note of <= n_bucket samples can produce (+margin), so a
+    (sample bucket, frame bucket) pair never splits a group."""
+    return n_bucket // hop + 8
+
+
+def bucket_batch(b: int) -> int:
+    """Round a note-batch size up to a bucket (1, 2, 3, 4, 6, 8, then
+    steps of ~1.25x).  Eager PyTorch takes any batch size, so the phrase
+    renderer does not pad its batches; this is kept for static-shape
+    replay (CUDA graphs)."""
+    b = int(b)
+    p = 1 << max(0, b.bit_length() - 2)
+    cands = {p, 2 * p, 3 * p, 4 * p, 6 * p, 8 * p}
+    if p >= 8:
+        cands.update({(5 * p) // 4, (5 * p) // 2, 5 * p})
+    for cand in sorted(cands):
+        if cand >= b:
+            return cand
+    return 8 * p
+
+
 DEVICE_ENV = "GOOFER_TPU_TORCH_DEVICE"
 
 

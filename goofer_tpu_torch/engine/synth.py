@@ -1,7 +1,7 @@
-"""Harmonic-plus-noise resynthesis of one note.
+"""Harmonic-plus-noise resynthesis of a batch of notes.
 
-Port of goofer_tpu/engine/synth.py (``_synth_body`` unmasked), mirroring
-the reference resynthesis (ref: GOOFER.py:971-1220): LF pulse train ->
+Port of goofer_tpu/engine/synth.py (``_synth_body``), mirroring the
+reference resynthesis (ref: GOOFER.py:971-1220): LF pulse train ->
 STFT -> f0-tracking sigmoid highpass -> envelope imposition with the
 1..100 boost tilt -> brightness shelf + frequency blur on voiced frames ->
 iSTFT, plus a random-phase noise branch split into breath (highpassed,
@@ -11,20 +11,25 @@ normalize``.  Only what the note render uses is here: the GOOFER-style
 ``synthesize`` entry and its extra options (roughness, brightness and
 subharmonic switches) come with the models/hnm.py facade.
 
-``SynthStatic`` holds the shape and branch configuration; ``knobs`` are
-host scalars (Python floats) plus the (4,) band-shift tensor.  Random
-streams come from a ``numpy.random.SeedSequence``: each stochastic stream
-gets its own ``torch.Generator`` on the render's device.
+Where goofer_tpu vmaps one note's graph, every tensor here carries a
+leading batch axis: B notes of one geometry go through each op, and
+through each hand kernel, in one call.  ``SynthStatic`` holds the shape
+and branch configuration shared by the batch; ``knobs`` are (B,) float32
+tensors (one value per note) plus the (B, 4) band shifts; every
+reduction (spectral peak, subharmonic peak, output peak) is per row.
+Random streams are counter-based draws (ops/noise.py) from ``keys``
+(B, SYNTH_STREAMS) int64, one key per note and stream, so a note's noise
+does not depend on the notes batched with it.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from goofer_tpu_torch import config
+from goofer_tpu_torch.ops import noise as rnd
 from goofer_tpu_torch.ops.envelope import (
     match_env_frames,
     shift_formants_global,
@@ -89,61 +94,85 @@ class SynthStatic:
     # tables.  The subharmonic layer gets its own, host-derived.
     pulse_min_spacing: int = config.PULSE_MIN_SPACING
     subharm_min_spacing: int = 8
+    # bucketed rendering: ``n`` is a padded length bucket and each note's
+    # true length rides in as the knob ``n_true``; excitation, spectral
+    # frames and stems past it are zeroed before any normalization, so
+    # notes of different true lengths share one batched pass
+    masked: bool = False
 
 
-def default_knobs() -> dict:
-    """Scalar parameters with the reference's defaults
-    (ref: GOOFER.py:971-983)."""
-    return {
-        "formant_shift": 1.0,
-        "formant_band_shifts": np.ones(4, dtype=np.float32),  # F1..F4
-        "uv_strength": 0.75,
-        "breath_strength": 0.1,
-        "normalize": 1.0,
-        "f0_jitter_strength": 1.5,
-        "volume_jitter_strength_harm": 50.0,
-        "volume_jitter_strength_breath": 100.0,
-        "subharm_weight": 0.5,
-    }
+# the random streams of one synthesis pass, columns of ``keys``
+STREAM_PHASE, STREAM_F0_JITTER, STREAM_VJ_HARM, STREAM_VJ_BREATH = range(4)
+SYNTH_STREAMS = 4
 
 
-def make_generator(seed: np.random.SeedSequence,
-                   device: torch.device) -> torch.Generator:
-    """A torch.Generator on ``device`` seeded from ``seed``'s entropy."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-    return gen
+def _frame_phases(keys: torch.Tensor, n_bins: int,
+                  t_frames: int) -> torch.Tensor:
+    """(B, n_bins, T) uniform [0, 2 pi) phases.  Frame f's bins are draws
+    f * n_bins .. (f + 1) * n_bins - 1 of the row's key, so they do not
+    depend on the frame count: a bucket-padded render draws the same
+    noise on its true frames as the unpadded one
+    (goofer_tpu/engine/synth.py:_frame_phases)."""
+    u = rnd.uniform(keys, t_frames * n_bins)
+    return (2.0 * math.pi) * u.reshape(-1, t_frames, n_bins).transpose(1, 2)
 
 
 def _synth_body(st: SynthStatic, env_spec: torch.Tensor,
                 f0_interp: torch.Tensor, voicing_mask: torch.Tensor,
                 formants_array: torch.Tensor, knobs: dict,
-                seed: np.random.SeedSequence):
-    """One synthesis pass; returns (mix, harmonic, aper_uv, aper_bre),
-    each (st.n,) float32 on the inputs' device."""
+                keys: torch.Tensor | None):
+    """One synthesis pass over B notes: ``env_spec`` (B, n_bins, T),
+    ``f0_interp`` and ``voicing_mask`` (B, st.n), ``formants_array``
+    (B, 4, T), ``knobs`` of (B,) tensors (``formant_shift``,
+    ``uv_strength``, ``breath_strength``, ``normalize``,
+    ``f0_jitter_strength``, ``volume_jitter_strength_harm`` / ``_breath``,
+    ``subharm_weight``, ``n_true``; ref defaults: GOOFER.py:971-983) and
+    the (B, 4) ``formant_band_shifts``, ``keys`` (B, SYNTH_STREAMS)
+    int64 (None for a pass that draws nothing: no noise stems and no
+    jitter).  Returns (mix, harmonic, aper_uv, aper_bre), each (B, st.n)
+    float32 on the inputs' device."""
     sr, n_fft, hop, n = st.sr, st.n_fft, st.hop, st.n
     dev = env_spec.device
-    g_phase, g_f0j, g_vjh, g_vjb = (make_generator(s, dev)
-                                    for s in seed.spawn(4))
 
     env_spec = env_spec.float()
     f0 = f0_interp.float()
     mask = voicing_mask.float()
 
-    env4breath = (gaussian_blur1d(env_spec, 1.75, axis=0)
+    # Bucketed rendering (st.masked): the pass runs on the padded length
+    # ``n`` while each row's true length is the knob ``n_true``.
+    # Reproducing the unpadded pass takes four cuts:
+    #   * the excitation is zeroed past n_true and the stft's right
+    #     reflect pad at the TRUE end is written in (the magnitude
+    #     normalization sees mirrored pulses in its last frames);
+    #   * spectral frames past the true frame count are zeroed before the
+    #     magnitude reduction and the iSTFTs;
+    #   * stems are zeroed past hop * (n_true // hop), where the unpadded
+    #     iSTFT's overlap-add ends and zero padding begins;
+    #   * each iSTFT normalizes a row by the window sum of its true frames
+    #     (ops/stft.py:istft).  goofer_tpu divides by the padded frames'
+    #     sum, which attenuates the last n_fft samples before the true
+    #     end; where the note's peak lies there, its peak normalization
+    #     then scales the whole note (by up to ~10%).
+    valid_in = valid_out = frame_valid = n_true_i = tf_true = None
+    if st.masked:
+        n_true_i = torch.round(knobs["n_true"]).long()[:, None]
+        idx = torch.arange(n, device=dev)
+        valid_in = (idx < n_true_i).float()
+        valid_out = (idx < hop * (n_true_i // hop)).float()
+
+    env4breath = (gaussian_blur1d(env_spec, 1.75, axis=-2)
                   if st.need_noise else None)
 
     if st.warp_formants:
-        bands = torch.as_tensor(knobs["formant_band_shifts"],
-                                dtype=torch.float32, device=dev)
-        shifted = formants_array * bands[:, None]
+        shifted = formants_array * knobs["formant_band_shifts"][:, :, None]
         env_spec = warp_env_by_formants(env_spec, formants_array, shifted, sr)
     if st.formant_shift_on:
         env_spec = shift_formants_global(env_spec, knobs["formant_shift"], sr)
 
     if st.f0_jitter:
-        jit_track = make_f0_jitter(g_f0j, n, sr, F0_JITTER_SPEED,
-                                   knobs["f0_jitter_strength"], dev)
+        jit_track = make_f0_jitter(keys[:, STREAM_F0_JITTER], n, sr,
+                                   F0_JITTER_SPEED,
+                                   knobs["f0_jitter_strength"])
         f0 = f0 * (1.0 + (jit_track - 1.0) * mask)
 
     pulse = pulse_train(f0, sr, max_overlap=st.max_overlap,
@@ -153,51 +182,74 @@ def _synth_body(st: SynthStatic, env_spec: torch.Tensor,
         f0_sub = apply_subharm_vibrato(
             f0, sr, SUBHARM_VIBRATO_RATE, SUBHARM_VIBRATO_DEPTH,
             SUBHARM_VIBRATO_DELAY)
+        sub_mask = mask * valid_in if st.masked else mask
         pulse = pulse + subharm_pulse_train(
-            f0_sub, sr, mask, list(SUBHARM_SEMITONES),
+            f0_sub, sr, sub_mask, list(SUBHARM_SEMITONES),
             knobs["subharm_weight"], min_spacing=st.subharm_min_spacing)
 
+    if st.masked:
+        # padded[n_true + k] = pulse[n_true - 2 - k]: a per-row scatter
+        # where goofer_tpu has dynamic_update_slice, whose start clamps so
+        # that the slice fits; resampler._bucketize leaves n_fft // 2 of
+        # room past n_true
+        pulse = pulse * valid_in
+        k = torch.arange(n_fft // 2, device=dev)
+        src = torch.clamp(n_true_i - 2 - k, 0, n - 1)
+        dst = torch.clamp(n_true_i, max=n - n_fft // 2) + k
+        pulse = pulse.scatter(1, dst, torch.gather(pulse, 1, src))
+
     S_harm = stft(pulse, n_fft, hop)
-    t_frames = S_harm.shape[1]
+    t_frames = S_harm.shape[-1]
+
+    if st.masked:
+        # the unpadded stft has 1 + n_true // hop frames
+        tf_true = 1 + n_true_i // hop
+        frame_valid = (torch.arange(t_frames, device=dev)
+                       < tf_true).float()[:, None, :]
+        S_harm = S_harm * frame_valid
 
     freqs = torch.as_tensor(rfft_freqs(sr, n_fft), device=dev)  # (n_bins, 1)
-    f0_frames = match_env_frames(f0[None, ::hop], t_frames)[0]
+    f0_frames = match_env_frames(f0[:, ::hop], t_frames)
     hp_mask = 1.0 / (1.0 + torch.exp(
-        -torch.clamp((freqs - f0_frames[None, :]) / 5.0, -60.0, 60.0)))
+        -torch.clamp((freqs - f0_frames[:, None, :]) / 5.0, -60.0, 60.0)))
 
     S_harm = S_harm * hp_mask
     env_m = match_env_frames(env_spec, t_frames)
 
-    mag_harm = torch.max(torch.abs(S_harm) + 1e-8)
+    mag_harm = torch.amax(torch.abs(S_harm) + 1e-8, dim=(-2, -1),
+                          keepdim=True)
     boost = torch.as_tensor(boost_curve(n_fft), device=dev)
     S_harm = (S_harm / mag_harm) * env_m * boost
 
     bright_harm, bright_breath = (torch.as_tensor(c, device=dev)
                                   for c in brightness_curves(sr, n_fft))
-    voiced_frames = match_env_frames(mask[None, ::hop], t_frames)[0]
-    voiced_cols = (voiced_frames > 0)[None, :]
+    voiced_frames = match_env_frames(mask[:, ::hop], t_frames)
+    voiced_cols = (voiced_frames > 0)[:, None, :]
 
     S_v = gaussian_blur_complex_freq(S_harm * bright_harm, 0.5)
     S_harm = torch.where(voiced_cols, S_v, S_harm)
 
-    harmonic = istft(S_harm, hop, length=n)
+    harmonic = istft(S_harm, hop, n, tf_true)
 
     if st.need_noise:
         env_noise = match_env_frames(env4breath, t_frames)
-        phi = 2.0 * math.pi * torch.rand(env_noise.shape, generator=g_phase,
-                                         dtype=torch.float32, device=dev)
+        phi = _frame_phases(keys[:, STREAM_PHASE], env_noise.shape[-2],
+                            t_frames)
         S_uv = torch.complex(torch.cos(phi), torch.sin(phi)) * env_noise
+        if st.masked:
+            S_uv = S_uv * frame_valid
         S_breath = S_uv * hp_mask
         S_bv = gaussian_blur_complex_freq(S_breath * bright_breath, 0.5)
         S_breath = torch.where(voiced_cols, S_bv, S_breath)
 
-        aper_breath = istft(S_breath, hop, length=n)
+        aper_breath = istft(S_breath, hop, n, tf_true)
         mask_smooth = smooth_mask_downsampled(
             mask, sigma=st.noise_transition_smoothness, ds=4)
-        aper_bre = aper_breath * mask_smooth * knobs["breath_strength"]
+        aper_bre = (aper_breath * mask_smooth
+                    * knobs["breath_strength"][:, None])
         if st.need_uv:
-            aper_uv = (istft(S_uv, hop, length=n) * (1.0 - mask_smooth)
-                       * knobs["uv_strength"])
+            aper_uv = (istft(S_uv, hop, n, tf_true) * (1.0 - mask_smooth)
+                       * knobs["uv_strength"][:, None])
         else:
             aper_uv = torch.zeros_like(harmonic)
     else:
@@ -205,18 +257,23 @@ def _synth_body(st: SynthStatic, env_spec: torch.Tensor,
         aper_uv = torch.zeros_like(harmonic)
 
     if st.volume_jitter:
-        hj = make_volume_jitter(g_vjh, n, sr, VOLUME_JITTER_SPEED,
-                                knobs["volume_jitter_strength_harm"],
-                                device=dev)
-        bj = make_volume_jitter(g_vjb, n, sr, VOLUME_JITTER_SPEED,
-                                knobs["volume_jitter_strength_breath"],
-                                device=dev)
+        hj = make_volume_jitter(keys[:, STREAM_VJ_HARM], n, sr,
+                                VOLUME_JITTER_SPEED,
+                                knobs["volume_jitter_strength_harm"])
+        bj = make_volume_jitter(keys[:, STREAM_VJ_BREATH], n, sr,
+                                VOLUME_JITTER_SPEED,
+                                knobs["volume_jitter_strength_breath"])
         vj_mask = gaussian_blur1d(mask, 20.0)
         harmonic = harmonic * (1.0 + (hj - 1.0) * vj_mask)
         aper_bre = aper_bre * (1.0 + (bj - 1.0) * vj_mask)
 
+    if st.masked:
+        harmonic = harmonic * valid_out
+        aper_uv = aper_uv * valid_out
+        aper_bre = aper_bre * valid_out
+
     combined = harmonic + aper_uv + aper_bre
-    norm_amt = min(max(float(knobs["normalize"]), 0.0), 1.0)
-    peak = torch.max(torch.abs(combined)) + 1e-12
+    norm_amt = torch.clamp(knobs["normalize"], 0.0, 1.0)[:, None]
+    peak = torch.amax(torch.abs(combined), dim=-1, keepdim=True) + 1e-12
     gain = (1.0 / peak) ** norm_amt
     return combined * gain, harmonic * gain, aper_uv * gain, aper_bre * gain

@@ -15,11 +15,10 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from goofer_tpu_torch.config import COMPUTE_DTYPE
 from goofer_tpu_torch.ops.filters import gaussian_blur1d
-from goofer_tpu_torch.ops.interp import gather_lerp, linspace
+from goofer_tpu_torch.ops.interp import gather_lerp, linspace, per_row
 
 
 def hz_to_mel(hz):
@@ -75,44 +74,48 @@ def decode_env_from_knots(knot_vals_log: torch.Tensor, sr: int, n_fft: int,
 
 
 def gather_lerp_columns(env: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """out[b, t] = env[pos[b, t], t] with linear interpolation and edge
-    clamping; ``pos`` is a fractional row index per (bin, frame)."""
-    n_bins = env.shape[0]
+    """out[..., b, t] = env[..., pos[..., b, t], t] with linear
+    interpolation and edge clamping; ``pos`` is a fractional row index per
+    (bin, frame) of a (..., n_bins, T) envelope."""
+    n_bins = env.shape[-2]
     pos = torch.clamp(pos, 0.0, n_bins - 1.0)
     lo = torch.clamp(torch.floor(pos).long(), 0, max(n_bins - 2, 0))
     frac = (pos - lo).to(env.dtype)
-    a = torch.gather(env, 0, lo)
-    b = torch.gather(env, 0, torch.clamp(lo + 1, max=n_bins - 1))
+    a = torch.gather(env, -2, lo)
+    b = torch.gather(env, -2, torch.clamp(lo + 1, max=n_bins - 1))
     return a * (1.0 - frac) + b * frac
 
 
-def shift_formants_global(env: torch.Tensor, shift_ratio: float,
-                          sr: int) -> torch.Tensor:
+def shift_formants_global(env: torch.Tensor, shift_ratio, sr: int
+                          ) -> torch.Tensor:
     """Global formant shift: resample each frame at freqs/ratio
-    (ref: GOOFER.py:618-627)."""
-    n_bins = env.shape[0]
+    (ref: GOOFER.py:618-627).  ``shift_ratio`` is a float for an
+    (n_bins, T) envelope or a (B,) tensor, one ratio per row of a
+    (B, n_bins, T) batch."""
+    n_bins = env.shape[-2]
     freqs = linspace(0.0, sr / 2.0, n_bins, env.device)
-    warped = torch.clamp(freqs / shift_ratio, 0.0, sr / 2.0)
+    warped = torch.clamp(freqs / per_row(shift_ratio), 0.0, sr / 2.0)
     pos = warped / (sr / 2.0) * (n_bins - 1)
-    return gather_lerp(env, pos, axis=0)
+    return gather_lerp(env, pos, axis=-2)
 
 
 def warp_env_by_formants(env: torch.Tensor, orig_formants: torch.Tensor,
                          shifted_formants: torch.Tensor,
                          sr: int) -> torch.Tensor:
-    """Per-formant piecewise-linear frequency warp (ref: GOOFER.py:840-875).
+    """Per-formant piecewise-linear frequency warp (ref: GOOFER.py:840-875)
+    of a (..., n_bins, T) envelope by (..., 4, T) formant tracks.
 
     Per frame, anchors map shifted->orig frequency: (0, 0), each valid
     formant pair (f_shifted, f_orig) with f_orig in (50, sr/2) and
     f_shifted > 50, and (sr/2, sr/2).  Invalid anchors are pushed past
     sr/2 so every frame has 6 sorted anchors; each column is then
     resampled at the warped frequencies."""
-    n_bins, n_frames = env.shape
+    n_bins, n_frames = env.shape[-2:]
     nyq = sr / 2.0
     dev = env.device
     freqs = linspace(0.0, nyq, n_bins, dev)
 
-    f_orig = orig_formants.float()                   # (4, T)
+    f_orig = orig_formants.float()                   # (..., 4, T)
     f_shift = shifted_formants.float()
     valid = (f_orig > 50.0) & (f_orig < nyq) & (f_shift > 50.0)
 
@@ -121,22 +124,22 @@ def warp_env_by_formants(env: torch.Tensor, orig_formants: torch.Tensor,
     dst_mid = torch.where(valid, f_shift, big + slot_bump)
     src_mid = torch.where(valid, f_orig, big + slot_bump)
 
-    zeros = torch.zeros(1, n_frames, dtype=torch.float32, device=dev)
-    nyqs = torch.full((1, n_frames), nyq, dtype=torch.float32, device=dev)
-    dst = torch.cat([zeros, dst_mid, nyqs], dim=0)   # (6, T)
-    src = torch.cat([zeros, src_mid, nyqs], dim=0)
+    zeros = torch.zeros_like(dst_mid[..., :1, :])
+    nyqs = torch.full_like(zeros, nyq)
+    dst = torch.cat([zeros, dst_mid, nyqs], dim=-2)  # (..., 6, T)
+    src = torch.cat([zeros, src_mid, nyqs], dim=-2)
 
-    order = torch.argsort(dst, dim=0, stable=True)
-    dst = torch.gather(dst, 0, order)
-    src = torch.gather(src, 0, order)
+    order = torch.argsort(dst, dim=-2, stable=True)
+    dst = torch.gather(dst, -2, order)
+    src = torch.gather(src, -2, order)
 
     # seg[b, t] = number of anchors <= freqs[b], minus one, clipped
-    cmp = dst[None, :, :] <= freqs[:, None, None]    # (n_bins, 6, T)
-    seg = torch.clamp(cmp.sum(dim=1) - 1, 0, 4)       # (n_bins, T)
-    x0 = torch.gather(dst, 0, seg)
-    x1 = torch.gather(dst, 0, seg + 1)
-    y0 = torch.gather(src, 0, seg)
-    y1 = torch.gather(src, 0, seg + 1)
+    cmp = dst[..., None, :, :] <= freqs[:, None, None]  # (..., n_bins, 6, T)
+    seg = torch.clamp(cmp.sum(dim=-2) - 1, 0, 4)        # (..., n_bins, T)
+    x0 = torch.gather(dst, -2, seg)
+    x1 = torch.gather(dst, -2, seg + 1)
+    y0 = torch.gather(src, -2, seg)
+    y1 = torch.gather(src, -2, seg + 1)
     w = (freqs[:, None] - x0) / torch.clamp(x1 - x0, min=1e-10)
     warped_freqs = y0 + w * (y1 - y0)
 
@@ -145,21 +148,22 @@ def warp_env_by_formants(env: torch.Tensor, orig_formants: torch.Tensor,
 
 
 def _match_frame_means(orig: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
-    m0 = orig.mean(dim=0, keepdim=True)
-    m1 = mod.mean(dim=0, keepdim=True)
+    m0 = orig.mean(dim=-2, keepdim=True)
+    m1 = mod.mean(dim=-2, keepdim=True)
     return mod * (m0 / (m1 + 1e-12))
 
 
 def env_shape(env: torch.Tensor, shape_amt: float) -> torch.Tensor:
     """Envelope smoothing (shape_amt < 0) or unsharp-mask sharpening
-    (shape_amt > 0), frame-mean preserving (ref: SillySampler.py:518-551)."""
+    (shape_amt > 0) along the bins of (..., n_bins, T), frame-mean
+    preserving (ref: SillySampler.py:518-551)."""
     if shape_amt == 0.0 or env.numel() == 0:
         return env
     s = abs(float(shape_amt))
     if shape_amt < 0.0:
-        blur = gaussian_blur1d(env, 1.0 + 6.0 * s, axis=0)
+        blur = gaussian_blur1d(env, 1.0 + 6.0 * s, axis=-2)
         return torch.clamp(_match_frame_means(env, blur), min=0.0)
-    blur = gaussian_blur1d(env, 0.8 + 4.0 * s, axis=0)
+    blur = gaussian_blur1d(env, 0.8 + 4.0 * s, axis=-2)
     out = torch.clamp(env + (5.0 * s) * (env - blur), min=0.0)
     return _match_frame_means(env, out)
 
@@ -168,20 +172,22 @@ def fry_env_shift(env: torch.Tensor, fry_weight_frames: torch.Tensor,
                   shift: float = 0.92) -> torch.Tensor:
     """Per-frame envelope compression toward low frequencies under the fry
     mask (ref: SillySampler.py:967-996): scale s = 1 - w (1 - shift),
-    each column resampled at bin / s; frames with s == 1 are kept."""
-    n_bins = env.shape[0]
-    s = 1.0 - fry_weight_frames * (1.0 - shift)
+    each column resampled at bin / s; frames with s == 1 are kept.
+    ``env`` (..., n_bins, T), ``fry_weight_frames`` (..., T)."""
+    n_bins = env.shape[-2]
+    s = (1.0 - fry_weight_frames * (1.0 - shift))[..., None, :]
     bins = torch.arange(n_bins, dtype=torch.float32, device=env.device)
-    warped = gather_lerp_columns(env, bins[:, None] / s[None, :])
+    warped = gather_lerp_columns(env, (bins[:, None] / s).expand_as(env))
     keep = torch.abs(s - 1.0) < 1e-6
-    return torch.where(keep[None, :], env, warped)
+    return torch.where(keep, env, warped)
 
 
 def match_env_frames(env: torch.Tensor, target_frames: int) -> torch.Tensor:
-    """Truncate or edge-pad the frame axis (ref: GOOFER.py:629-635)."""
-    t = env.shape[1]
+    """Truncate or edge-pad the last (frame) axis (ref: GOOFER.py:629-635)."""
+    t = env.shape[-1]
     if t > target_frames:
-        return env[:, :target_frames]
+        return env[..., :target_frames]
     if t < target_frames:
-        return F.pad(env[None], (0, target_frames - t), mode="replicate")[0]
+        edge = env[..., -1:].expand(*env.shape[:-1], target_frames - t)
+        return torch.cat([env, edge], dim=-1)
     return env

@@ -67,9 +67,9 @@ def gaussian_blur1d(x: torch.Tensor, sigma: float, axis: int = -1,
 def gaussian_blur_complex_freq(S: torch.Tensor, sigma: float) -> torch.Tensor:
     """Frequency-axis blur of a complex spectrogram, real and imaginary
     parts separately (ref: GOOFER.py:1143 applies its real filter to
-    complex data).  complex64 in, complex64 out."""
-    re = gaussian_blur1d(S.real.contiguous(), sigma, axis=0)
-    im = gaussian_blur1d(S.imag.contiguous(), sigma, axis=0)
+    complex data).  (..., n_bins, T) complex64 in and out."""
+    re = gaussian_blur1d(S.real.contiguous(), sigma, axis=-2)
+    im = gaussian_blur1d(S.imag.contiguous(), sigma, axis=-2)
     return torch.complex(re, im)
 
 
@@ -77,11 +77,12 @@ def smooth_mask_downsampled(mask: torch.Tensor, sigma: float = 100.0,
                             ds: int = 4) -> torch.Tensor:
     """Soft voiced/unvoiced crossfade (ref: GOOFER.py:556-569): decimate
     by ``ds``, blur with sigma/ds (floored at 1), resample back to the
-    original length over a shared [0, 1] axis."""
+    original length over a shared [0, 1] axis.  Rows of a (..., n) mask
+    are smoothed independently."""
     from goofer_tpu_torch.ops.interp import resample_1d
 
-    n = mask.shape[0]
-    short = mask[::ds].float() if ds > 1 else mask.float()
+    n = mask.shape[-1]
+    short = mask[..., ::ds].float() if ds > 1 else mask.float()
     sig_short = max(1.0, float(sigma) / max(1, ds))
     short_s = gaussian_blur1d(short, sig_short)
     if ds > 1:

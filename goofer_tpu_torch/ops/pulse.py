@@ -34,6 +34,7 @@ import torch
 
 from goofer_tpu_torch import config
 from goofer_tpu_torch.ops.cuda.pulse_kernel import pulse_accumulate
+from goofer_tpu_torch.ops.interp import per_row
 
 
 def lf_pulse_value(u: torch.Tensor, T: torch.Tensor, Ra: float, Rg: float,
@@ -214,17 +215,18 @@ def pulse_train(f0: torch.Tensor, sr: float,
 
 
 def subharm_pulse_train(f0: torch.Tensor, sr: float, mask: torch.Tensor,
-                        semitones, weight: float,
+                        semitones, weight,
                         fallback_f0: float = config.PULSE_FALLBACK_F0,
                         max_overlap: int = 8,
                         min_spacing: int = 8) -> torch.Tensor:
-    """Subharmonic pulse layer (ref: GOOFER.py:672-746) on (n,) tracks.
+    """Subharmonic pulse layer (ref: GOOFER.py:672-746) on (..., n) tracks.
 
     Per semitone ratio, a phase tracker accumulates ``sub_f0/sr`` on
     voiced samples only and fires an LF pulse (Ra=0.02, Rg=1.7, Rk=1) at
-    each integer crossing: one kernel launch gated by the voicing mask.
-    The sum is gated by the mask, peak-normalized globally, then scaled by
-    ``weight``."""
+    each integer crossing: one kernel launch for all rows, gated by the
+    voicing mask.  Each row's sum is gated by its mask, peak-normalized
+    over the row, then scaled by ``weight`` (a float, or (B,) per row of a
+    (B, n) batch)."""
     f0 = f0.float()
     mask = mask.float()
     if not isinstance(semitones, (list, tuple)):
@@ -243,6 +245,6 @@ def subharm_pulse_train(f0: torch.Tensor, sr: float, mask: torch.Tensor,
             False, max_overlap, min_spacing).reshape(f0.shape)
 
     total = total * mask
-    peak = torch.max(torch.abs(total))
+    peak = torch.amax(torch.abs(total), dim=-1, keepdim=True)
     total = torch.where(peak > 1e-6, total / peak, total)
-    return total * weight
+    return total * per_row(weight)

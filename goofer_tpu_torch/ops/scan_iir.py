@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from goofer_tpu_torch.ops.cuda.cascade_kernel import one_pole_cascade
-from goofer_tpu_torch.ops.interp import resample_1d
+from goofer_tpu_torch.ops.interp import per_row, resample_1d
 
 
 def _affine_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,15 +60,20 @@ def one_pole_cascade_plain(x: torch.Tensor, alpha: torch.Tensor, order: int,
 
 def cascade(x: torch.Tensor, alpha: torch.Tensor, order: int,
             btype: str) -> torch.Tensor:
-    """``one_pole_cascade`` on a (n,) or (B, n) signal; alpha (n,) is
-    shared by every row."""
-    rows = x.reshape(-1, x.shape[-1]).float().contiguous()
-    return one_pole_cascade(rows, alpha.float().contiguous(), order,
+    """``one_pole_cascade`` on a (n,) or (..., n) signal: one launch for
+    all rows.  alpha (n,) is shared by every row; alpha of ``x``'s shape
+    gives each row its own coefficients."""
+    n = x.shape[-1]
+    rows = x.reshape(-1, n).float().contiguous()
+    alpha = alpha.float()
+    if alpha.ndim > 1:
+        alpha = alpha.expand(x.shape).reshape(-1, n)
+    return one_pole_cascade(rows, alpha.contiguous(), order,
                             btype).reshape(x.shape)
 
 
 def one_pole_highpass(x: torch.Tensor, sr: float, fc: float) -> torch.Tensor:
-    """Static one-pole highpass y[i] = a (y[i-1] + x[i] - x[i-1]) with
+    """Static one-pole highpass along the last axis of (..., n): y[i] = a (y[i-1] + x[i] - x[i-1]) with
     x[-1] = 0, a = rc / (rc + 1/sr), rc = 1 / (2 pi fc)
     (ref: GOOFER.py:877-892).
 
@@ -86,26 +91,29 @@ def one_pole_highpass(x: torch.Tensor, sr: float, fc: float) -> torch.Tensor:
     return y + x[..., :1] * a ** steps
 
 
-def butter_alpha(f0: torch.Tensor, n: int, sr: float, cutoff_factor: float,
+def butter_alpha(f0: torch.Tensor, n: int, sr: float, cutoff_factor,
                  btype: str) -> torch.Tensor:
-    """dynamic_butter_filter's (n,) stage coefficients for the cutoff
-    fc: f0 * cutoff_factor where f0 > 0, else the raw cutoff_factor (in
-    Hz); floors 60 Hz (LP) / 20 Hz (HP); ceiling 0.45 sr.  f0 is
-    resampled to n samples and gets an edge-padded 5-tap moving average
-    when any sample is voiced.  LP alpha = 2 pi fc / (2 pi fc + sr),
+    """dynamic_butter_filter's stage coefficients, (n,) for an f0 track
+    (m,) or (B, n) for a batch (B, m), for the cutoff fc: f0 *
+    cutoff_factor where f0 > 0, else the raw cutoff_factor (in Hz);
+    floors 60 Hz (LP) / 20 Hz (HP); ceiling 0.45 sr.  ``cutoff_factor``
+    is a float or one value per row, (B,).  f0 is resampled to n samples
+    and each row gets an edge-padded 5-tap moving average when any of
+    its samples is voiced.  LP alpha = 2 pi fc / (2 pi fc + sr),
     HP alpha = sr / (2 pi fc + sr)."""
-    f0 = f0.float()
-    if f0.shape[0] != n:
-        f0 = resample_1d(f0, n)
-    padded = F.pad(f0[None, None], (2, 2), mode="replicate")
-    taps = torch.full((1, 1, 5), 1.0 / 5.0, dtype=torch.float32,
-                      device=f0.device)
-    smoothed = F.conv1d(padded, taps)[0, 0]
-    f0_s = torch.where(torch.any(f0 > 0), smoothed, f0)
-    fc = torch.where(f0_s > 0.0, f0_s * cutoff_factor,
-                     torch.full_like(f0_s, cutoff_factor))
     if btype not in ("lowpass", "highpass"):
         raise ValueError(f"unknown btype {btype!r}")
+    f0 = f0.float()
+    if f0.shape[-1] != n:
+        f0 = resample_1d(f0, n)
+    cutoff_factor = per_row(cutoff_factor)
+    padded = F.pad(f0.reshape(-1, 1, n), (2, 2), mode="replicate")
+    taps = torch.full((1, 1, 5), 1.0 / 5.0, dtype=torch.float32,
+                      device=f0.device)
+    smoothed = F.conv1d(padded, taps).reshape(f0.shape)
+    f0_s = torch.where(torch.any(f0 > 0, dim=-1, keepdim=True), smoothed, f0)
+    fc = torch.where(f0_s > 0.0, f0_s * cutoff_factor,
+                     torch.zeros_like(f0_s) + cutoff_factor)
     lowpass = btype == "lowpass"
     fc = torch.clamp(fc, 60.0 if lowpass else 20.0, 0.45 * sr)
     w = 2.0 * math.pi * fc
@@ -113,11 +121,12 @@ def butter_alpha(f0: torch.Tensor, n: int, sr: float, cutoff_factor: float,
 
 
 def dynamic_butter_filter(signal: torch.Tensor, f0: torch.Tensor, sr: float,
-                          cutoff_factor: float, order: int = 4,
+                          cutoff_factor, order: int = 4,
                           btype: str = "lowpass") -> torch.Tensor:
     """F0-tracking cascaded one-pole filter (ref: SillySampler.py:95-115)
-    on a (n,) signal or a (B, n) stack sharing one f0 track; the
-    coefficients are butter_alpha's."""
+    on a (n,) signal, on a (B, n) stack sharing one f0 track (m,), or on
+    (B, n) rows each with its own f0 row (B, m) and, optionally, its own
+    ``cutoff_factor`` (B,); the coefficients are butter_alpha's."""
     x = signal.float()
     n = x.shape[-1]
     if n == 0:

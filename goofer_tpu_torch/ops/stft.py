@@ -10,6 +10,7 @@ Port of goofer_tpu/ops/stft.py, same framing contract
   accumulated squared window (skipping samples where it is ~0), center
   trim, then pad/cut to the requested length.
 
+Both take a (..., n) batch of signals along the last axis.
 ``torch.stft``/``torch.istft`` are not used: ``istft`` normalizes the
 overlap-add differently.  Framing is ``unfold`` and the overlap-add is
 ``F.fold`` (col2im), both on cuFFT-sized tensors.
@@ -33,21 +34,22 @@ def frame_count(n_samples: int, n_fft: int, hop: int) -> int:
 
 
 def stft(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """Complex STFT of a 1-D signal; returns (n_fft//2 + 1, num_frames)
-    complex64."""
+    """Complex STFT along the last axis of a (..., n) signal; returns
+    (..., n_fft//2 + 1, num_frames) complex64."""
     x = x.float()
-    n = x.shape[0]
+    n = x.shape[-1]
     pad = n_fft // 2
     if n >= 2:
         xp = reflect_pad(x, pad, pad)
     else:
-        xp = x[:1].expand(n + 2 * pad)
-    if xp.shape[0] < n_fft:
-        xp = torch.cat([xp, xp[-1:].expand(n_fft - xp.shape[0])])
+        xp = x[..., :1].expand(*x.shape[:-1], n + 2 * pad)
+    if xp.shape[-1] < n_fft:
+        xp = torch.cat([xp, xp[..., -1:].expand(
+            *x.shape[:-1], n_fft - xp.shape[-1])], dim=-1)
     num_frames = frame_count(n, n_fft, hop)
-    frames = xp.unfold(0, n_fft, hop)[:num_frames].T     # (n_fft, T)
+    frames = xp.unfold(-1, n_fft, hop)[..., :num_frames, :]   # (..., T, n_fft)
     win = torch.as_tensor(sqrt_hann_window(n_fft), device=x.device)
-    return torch.fft.rfft(frames * win[:, None], dim=0)
+    return torch.fft.rfft(frames * win, dim=-1).transpose(-1, -2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,27 +64,66 @@ def _win_sum_sq(n_fft: int, hop: int, num_frames: int,
     return acc.astype(np.float32)
 
 
-def istft(S: torch.Tensor, hop: int, length: int | None = None
-          ) -> torch.Tensor:
-    """Inverse STFT with windowed win^2-normalized overlap-add."""
-    n_fft = (S.shape[0] - 1) * 2
-    num_frames = S.shape[1]
+@functools.lru_cache(maxsize=None)
+def _win_sum_tails(n_fft: int, hop: int) -> np.ndarray:
+    """Row k - 1 (k = 1 .. n_fft // hop) holds the accumulated window^2
+    past the start of frame k when frame k - 1 is the last of at least k:
+    tail[k - 1][r] = sum_{j=1..k} w^2[r + j * hop], r < n_fft - hop."""
+    w2 = np.zeros(2 * n_fft, dtype=np.float64)
+    w2[:n_fft] = sqrt_hann_window(n_fft).astype(np.float64) ** 2
+    r = np.arange(n_fft - hop)
+    steps = np.stack([w2[r + j * hop] for j in range(1, n_fft // hop + 1)])
+    return np.cumsum(steps, axis=0).astype(np.float32)
+
+
+def _win_sum_rows(win_sum: torch.Tensor, true_frames: torch.Tensor,
+                  n_fft: int, hop: int) -> torch.Tensor:
+    """Per-row accumulated window^2 (B, expected_len) when row b's frames
+    from ``true_frames[b]`` on are empty: ``win_sum`` (of all the frames)
+    before the first empty frame's start, the last true frames' tail
+    behind it, zero past their end."""
+    tails = torch.as_tensor(_win_sum_tails(n_fft, hop), device=win_sum.device)
+    k = true_frames.reshape(-1, 1)
+    s = torch.arange(win_sum.shape[0], device=win_sum.device)
+    r = s - k * hop
+    tail = torch.gather(tails[torch.clamp(k[:, 0], 1, tails.shape[0]) - 1], 1,
+                        torch.clamp(r, 0, tails.shape[1] - 1))
+    tail = torch.where(r < tails.shape[1], tail, 0.0)
+    return torch.where(r < 0, win_sum, tail)
+
+
+def istft(S: torch.Tensor, hop: int, length: int | None = None,
+          true_frames: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse STFT of (..., n_bins, T) with windowed win^2-normalized
+    overlap-add; returns (..., samples).
+
+    ``true_frames`` (B,) int64, for (B, n_bins, T) whose row b is zero
+    from frame ``true_frames[b]`` on: each row is normalized by the
+    window sum of its true frames alone, as the inverse of its first
+    ``true_frames[b]`` frames would be, so the last n_fft samples before
+    a bucketed note's true end come out as in its unpadded render."""
+    n_fft = (S.shape[-2] - 1) * 2
+    num_frames = S.shape[-1]
+    batch = S.shape[:-2]
     win = torch.as_tensor(sqrt_hann_window(n_fft), device=S.device)
-    frames = torch.fft.irfft(S, n=n_fft, dim=0).float() * win[:, None]
+    frames = torch.fft.irfft(S, n=n_fft, dim=-2).float() * win[:, None]
 
     pad = n_fft // 2
     expected_len = n_fft + hop * (num_frames - 1)
-    y = F.fold(frames[None], output_size=(1, expected_len),
-               kernel_size=(1, n_fft), stride=(1, hop)).reshape(-1)
+    y = F.fold(frames.reshape(-1, n_fft, num_frames),
+               output_size=(1, expected_len), kernel_size=(1, n_fft),
+               stride=(1, hop)).reshape(*batch, expected_len)
 
-    win_sum = _win_sum_sq(n_fft, hop, num_frames, expected_len)
-    denom = torch.as_tensor(np.where(win_sum > 1e-9, win_sum, 1.0),
-                            device=S.device)
-    y = (y / denom)[pad: expected_len - pad]
+    win_sum = torch.as_tensor(
+        _win_sum_sq(n_fft, hop, num_frames, expected_len), device=S.device)
+    if true_frames is not None:
+        win_sum = _win_sum_rows(win_sum, true_frames, n_fft, hop)
+    denom = torch.where(win_sum > 1e-9, win_sum, 1.0)
+    y = (y / denom)[..., pad: expected_len - pad]
     if length is not None:
-        cur = y.shape[0]
+        cur = y.shape[-1]
         if cur < length:
             y = F.pad(y, (0, length - cur))
         else:
-            y = y[:length]
+            y = y[..., :length]
     return y

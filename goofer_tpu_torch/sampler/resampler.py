@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import logging
 import math
+import threading
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -113,14 +115,98 @@ def sanitize_formant_track(track: np.ndarray, t: int, sr: int,
     return x
 
 
+def _pad_memo(memo: dict, arr: np.ndarray, target: int, mode: str,
+              axis: int = -1) -> np.ndarray:
+    """Pad ``arr`` to ``target`` along ``axis``, memoized on the source
+    object's identity so arrays shared across notes pad to a SHARED
+    padded object (the phrase renderer sends such an array to the device
+    once)."""
+    cur = arr.shape[axis]
+    if cur >= target:
+        return arr
+    key = ("pad", id(arr), target, mode, axis)
+    out = memo.get(key)
+    if out is None:
+        width = [(0, 0)] * arr.ndim
+        width[axis] = (0, target - cur)
+        if mode == "zero":
+            out = np.pad(arr, width)
+        else:
+            out = np.pad(arr, width, mode="edge")
+        memo[key] = out
+    return out
+
+
+def _bucketize(rs: RenderStatic, arrays: dict, memo: dict):
+    """Pad note geometry to shared length buckets, so that notes of
+    nearby lengths form one batch.
+
+    Sample counts round up to a ~1.5-ratio geometric bucket
+    (config.bucket_len); frame counts derive from the sample bucket so a
+    bucket pair never splits a group.  Plan/position arrays pad by
+    repeating their last entry (the padded tail replays the final true
+    frame/sample), features pad edge.  The render (RenderStatic.masked)
+    zeroes everything past the scalar ``n_true`` before any
+    normalization, so padded output matches the exact render over the
+    true region up to the boundary smoothing of the voiced/unvoiced
+    crossfade.  The phrase renderer slices results back to n_true."""
+    hop = rs.hop
+    # n_fft//2 headroom: the masked synth writes the true-end stft reflect
+    # pad into the padded region past n_true
+    n_b = config.bucket_len(rs.n + rs.n_fft // 2)
+    te_b = config.bucket_frames(n_b, hop)
+    if rs.t_env > te_b:                       # pathological geometry
+        te_b = config.bucket_frames(config.bucket_len(rs.t_env * hop), hop)
+
+    def fbucket(frames: int) -> int:
+        return config.bucket_frames(config.bucket_len(frames * hop), hop)
+
+    a = dict(arrays)
+    a["env_cut"] = _pad_memo(memo, a["env_cut"],
+                             fbucket(a["env_cut"].shape[1]), "edge", axis=1)
+    s_b = config.bucket_len(max(a["f0_cut"].shape[0],
+                                a["mask_cut"].shape[0]))
+    a["f0_cut"] = _pad_memo(memo, a["f0_cut"], s_b, "edge")
+    a["mask_cut"] = _pad_memo(memo, a["mask_cut"], s_b, "edge")
+
+    # env plan: post-velocity env frames must land on te_b; with velocity
+    # the plan lives in the pre-warp domain and buckets independently.
+    # Sample-domain loop/velocity positions are closed forms built on the
+    # device, so only the pre-velocity length (rs.n_loop) buckets.
+    ep_b = fbucket(len(a["env_pos0"])) if rs.vel_on else te_b
+    for k in ("env_pos0", "env_pos1", "env_w"):
+        a[k] = _pad_memo(memo, a[k], ep_b, "edge")
+    if rs.vel_on:
+        a["vel_env_pos"] = _pad_memo(memo, a["vel_env_pos"], te_b, "edge")
+        n_loop_b = config.bucket_len(rs.n_loop or rs.n)
+    else:
+        n_loop_b = n_b
+
+    a["tracks"] = _pad_memo(memo, a["tracks"], te_b, "edge", axis=1)
+    a["tracks_raw"] = _pad_memo(memo, a["tracks_raw"], te_b, "edge", axis=1)
+
+    return replace(rs, n=n_b, t_env=te_b, n_loop=n_loop_b, masked=True), a
+
+
 def _feature_path(in_file: Path) -> Path:
     return in_file.with_name(f"{in_file.stem}_features.goofy")
+
+
+# get/insert under a lock: phrase plans may run on several threads, and
+# readers hold their own reference, so the clear-when-full sweep cannot
+# take an entry away mid-use
+_decoded_lock = threading.Lock()
+_decoded_cache: dict = {}
 
 
 def acquire_features(in_file: Path, device: torch.device):
     """Load the source's cached ``.goofy`` (ref: SillySampler.py:415-432)
     and decode a knot-mode envelope on ``device``.  Returns (env, f0,
     voicing mask, formants, sr, y_len) as host arrays.
+
+    Decoded features are memoized on (path, mtime): repeated phrase plans
+    against one source skip the parse and the decode and get the SAME
+    tuple, which the phrase planner's memo keys on.
 
     A missing ``.goofy`` raises: feature extraction is not ported yet
     (``python -m goofer_tpu.cli <folder>`` writes the caches)."""
@@ -129,6 +215,11 @@ def acquire_features(in_file: Path, device: torch.device):
         raise FileNotFoundError(
             f"{feat} not found: goofer_tpu_torch renders from cached "
             f"features only (analysis is not ported yet)")
+    ck = (str(feat), feat.stat().st_mtime_ns)
+    with _decoded_lock:
+        hit = _decoded_cache.get(ck)
+    if hit is not None:
+        return hit
     log.info("Loading cached features")
     env, f0i, vmask, forms, sr, ylen = load_features(feat)
     if isinstance(env, dict) and env.get("mode") == "knots":
@@ -136,7 +227,12 @@ def acquire_features(in_file: Path, device: torch.device):
             np.asarray(env["knot_vals_log"], dtype=np.float32), device=device)
         env = decode_env_from_knots(knots, env["sr"], env["n_fft"],
                                     env["n_bins"]).cpu().numpy()
-    return (np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, ylen)
+    out = (np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, ylen)
+    with _decoded_lock:
+        if len(_decoded_cache) > 64:
+            _decoded_cache.clear()
+        _decoded_cache[ck] = out
+    return out
 
 
 class GooferResampler:
@@ -185,24 +281,43 @@ class GooferResampler:
         log.info("Synthesizing")
         return render_note(rs, arrays, scalars, self.seed, self.device)
 
-    def prepare(self, env, f0i, vmask, forms, sr, ylen):
+    def prepare(self, env, f0i, vmask, forms, sr, ylen, cache=None):
         """Host planning: cut geometry, loop/velocity index plans, formant
         sanitize, pitch curve, pulse bounds.  Returns (RenderStatic,
         arrays, scalars) for render_core.render_note; the arrays are the
-        ones goofer_tpu's prepare() builds for an exact-length plan."""
+        ones goofer_tpu's prepare() builds for an exact-length plan.
+
+        ``cache`` (optional dict, shared across the notes of a phrase)
+        memoizes cut slices, looped formant tracks and pitch curves, so
+        that repeated notes contribute identical array OBJECTS, which
+        the phrase renderer then sends to the device once."""
         p = self.params
         hop = self.hop
         sample_len_sec = ylen / sr
+        memo = cache if cache is not None else {}
+
+        def cached(key, fn):
+            val = memo.get(key)
+            if val is None:
+                val = fn()
+                memo[key] = val
+            return val
 
         cut = plan_cut(sample_len_sec, sr, hop, p.offset_sec,
                        p.consonant_sec, p.cutoff_sec, p.reverse)
         log.info("Interpolating features")
-        env_cut = np.asarray(env[:, cut.start_frame:cut.end_frame],
-                             dtype=np.float32)
-        f0_cut = np.asarray(f0i[cut.start_sample:cut.end_sample],
-                            dtype=np.float32)
-        mask_cut = np.asarray(vmask[cut.start_sample:cut.end_sample],
-                              dtype=np.float32)
+        env_cut = cached(
+            ("env_cut", id(env), cut.start_frame, cut.end_frame),
+            lambda: np.asarray(env[:, cut.start_frame:cut.end_frame],
+                               dtype=np.float32))
+        f0_cut = cached(
+            ("f0_cut", id(f0i), cut.start_sample, cut.end_sample),
+            lambda: np.asarray(f0i[cut.start_sample:cut.end_sample],
+                               dtype=np.float32))
+        mask_cut = cached(
+            ("mask_cut", id(vmask), cut.start_sample, cut.end_sample),
+            lambda: np.asarray(vmask[cut.start_sample:cut.end_sample],
+                               dtype=np.float32))
 
         pre_frames = cut.consonant_frame - cut.start_frame
         tail_frames = cut.end_frame - cut.consonant_frame
@@ -247,67 +362,96 @@ class GooferResampler:
         # --- formant tracks: loop -> velocity -> canon -> sanitize ----
         track_plan = plan_track_loop(pre_frames, tail_frames,
                                      desired_tail_frames, p.loop_mode)
-        rows = []
-        rows_raw = []
-        for k in (1, 2, 3, 4):
-            track = np.asarray(forms.get(k, np.zeros(1)), dtype=np.float32)
-            track = track[cut.start_frame:cut.end_frame]
-            if track.size == 0:
-                track = np.zeros(1, dtype=np.float32)
-            looped = _np_fit(_np_apply_plan(track, track_plan),
-                             target_frames)
-            if fplan is not None:
-                looped = _np_fit(_np_apply_plan(looped, fplan), t_env)
-            # reference quirk: canon to the PRE-velocity frame count,
-            # then sanitize edge-pads back out (ref: SillySampler.py:756,792)
-            looped = _np_fit(looped, target_frames)
-            # warp-anchor track: upstream's sanitize aliases the canon'd
-            # track, so invalid frames reach the warp FILLED (unsmoothed)
-            # unless velocity changed the frame count or no frame is
-            # valid (ref: SillySampler.py:264-283 via 802-805, 1015)
-            fit = _np_fit(looped, t_env)
-            good_any = np.any(
-                np.isfinite(fit) & (fit >= SANITIZE_MIN_HZ[k - 1])
-                & (fit <= sr * 0.48))
-            if t_env == target_frames and good_any:
-                warp_tr = sanitize_formant_track(
+
+        def build_tracks():
+            rows = []
+            rows_raw = []
+            for k in (1, 2, 3, 4):
+                track = np.asarray(forms.get(k, np.zeros(1)),
+                                   dtype=np.float32)
+                track = track[cut.start_frame:cut.end_frame]
+                if track.size == 0:
+                    track = np.zeros(1, dtype=np.float32)
+                looped = _np_fit(_np_apply_plan(track, track_plan),
+                                 target_frames)
+                if fplan is not None:
+                    looped = _np_fit(_np_apply_plan(looped, fplan), t_env)
+                # reference quirk: canon to the PRE-velocity frame count,
+                # then sanitize edge-pads back out
+                # (ref: SillySampler.py:756,792)
+                looped = _np_fit(looped, target_frames)
+                # warp-anchor track: upstream's sanitize aliases the
+                # canon'd track, so invalid frames reach the warp FILLED
+                # (unsmoothed) unless velocity changed the frame count or
+                # no frame is valid (ref: SillySampler.py:264-283 via
+                # 802-805, 1015)
+                fit = _np_fit(looped, t_env)
+                good_any = np.any(
+                    np.isfinite(fit) & (fit >= SANITIZE_MIN_HZ[k - 1])
+                    & (fit <= sr * 0.48))
+                if t_env == target_frames and good_any:
+                    warp_tr = sanitize_formant_track(
+                        looped, t_env, sr, SANITIZE_MIN_HZ[k - 1],
+                        sigma_frames=0)
+                else:
+                    warp_tr = fit
+                rows_raw.append(warp_tr)
+                rows.append(sanitize_formant_track(
                     looped, t_env, sr, SANITIZE_MIN_HZ[k - 1],
-                    sigma_frames=0)
-            else:
-                warp_tr = fit
-            rows_raw.append(warp_tr)
-            rows.append(sanitize_formant_track(
-                looped, t_env, sr, SANITIZE_MIN_HZ[k - 1], sigma_frames=4))
-        tracks, tracks_raw = np.stack(rows), np.stack(rows_raw)
+                    sigma_frames=4))
+            return np.stack(rows), np.stack(rows_raw)
+
+        tracks, tracks_raw = cached(
+            ("tracks", id(forms), cut.start_frame, cut.end_frame,
+             p.loop_mode, desired_tail_frames, target_frames, t_env, vel),
+            build_tracks)
 
         # --- pitch curve ------------------------------------------------
         # the device interpolates the tick-rate curve per sample; the
         # host's dense curve only feeds the pd scale and pulse bounds
         tick_dt = 60.0 / (p.tempo * 96.0)
-        semi = p.bend_cents.astype(np.float64) / 100.0 + p.pitch_midi
-        if p.t_cents:
-            semi = semi + p.t_cents / 100.0
-        n_ticks = len(semi)
-        pitch_ticks = np.full(max(16, 1 << (n_ticks - 1).bit_length()),
-                              semi[-1], dtype=np.float32)
-        pitch_ticks[:n_ticks] = semi.astype(np.float32)
 
-        semi = pitch_ticks[:n_ticks].astype(np.float64)
-        if n_ticks == 1:
-            midi_curve = np.full(n_total, float(semi[0]))
-        else:
+        def build_ticks():
+            semi = p.bend_cents.astype(np.float64) / 100.0 + p.pitch_midi
+            if p.t_cents:
+                semi = semi + p.t_cents / 100.0
+            k = len(semi)
+            out = np.full(max(16, 1 << (k - 1).bit_length()), semi[-1],
+                          dtype=np.float32)
+            out[:k] = semi.astype(np.float32)
+            return out, k
+
+        pitch_ticks, n_ticks = cached(
+            ("ticks", p.pitch_midi, p.t_cents, p.bend_cents.tobytes()),
+            build_ticks)
+
+        def build_midi_curve():
+            semi = pitch_ticks[:n_ticks].astype(np.float64)
+            if n_ticks == 1:
+                return np.full(n_total, float(semi[0]))
             t_max = (n_ticks - 1) * tick_dt
             t_clamped = np.clip(np.arange(n_total) / sr, 0.0, t_max)
-            midi_curve = np.interp(t_clamped / tick_dt,
-                                   np.arange(n_ticks), semi)
+            return np.interp(t_clamped / tick_dt, np.arange(n_ticks), semi)
+
+        midi_curve = cached(
+            ("midi", n_total, p.pitch_midi, p.t_cents, p.tempo,
+             p.bend_cents.tobytes()),
+            build_midi_curve)
 
         # --- pd: 95th-percentile scale of the smoothed bend (host) -----
         pd_baseline = p.pitch_midi + (p.t_cents / 100.0)
-        pd_ref = 1.0
-        if p.pitch_dyn != 0.0:
+
+        def build_pd_ref():
             bend = _np_gaussian1d(midi_curve - pd_baseline,
                                   float(max(1, int(0.010 * sr))))
-            pd_ref = float(np.percentile(np.abs(bend), 95.0) + 1e-8)
+            return float(np.percentile(np.abs(bend), 95.0) + 1e-8)
+
+        pd_ref = 1.0
+        if p.pitch_dyn != 0.0:
+            pd_ref = cached(
+                ("pd", n_total, pd_baseline, p.pitch_midi, p.t_cents,
+                 p.tempo, p.bend_cents.tobytes()),
+                build_pd_ref)
 
         # --- fry weights and tension ------------------------------------
         vf = min(100.0, max(-100.0, float(p.fry_amount)))
@@ -378,7 +522,7 @@ class GooferResampler:
             n_loop=n_loop,
         )
 
-        one = np.zeros(1, dtype=np.float32)
+        one = cached(("zeros1",), lambda: np.zeros(1, dtype=np.float32))
         arrays = {
             "env_cut": env_cut,
             "f0_cut": f0_cut if f0_cut.size else one,
@@ -416,6 +560,7 @@ class GooferResampler:
             "unvoiced_mix": p.unvoiced_mix,
             "volume": p.volume,
             "aperiodic_mix": p.aperiodic_mix,
+            "n_true": float(n_total),
             "uv_strength": 0.75,
             "breath_strength": 0.1,
             "loop_pre": float(pre_samples),

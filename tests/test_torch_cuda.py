@@ -27,13 +27,15 @@ from chip_smoke import (  # noqa: E402
     f0_with_onsets,
     kernel_edges,
     phase_margin,
+    phrase_cascade_cases,
+    phrase_pulse_cases,
     pulse_pass_args,
 )
 from goofer_tpu_torch.ops import pulse, scan_iir  # noqa: E402
 from goofer_tpu_torch.ops.cuda import cascade_kernel, pulse_kernel  # noqa: E402
 from goofer_tpu_torch.ops.cuda.cascade_kernel import one_pole_cascade  # noqa: E402
 from goofer_tpu_torch.ops.cuda.pulse_kernel import pulse_accumulate  # noqa: E402
-from goofer_tpu_torch.sampler import render_core  # noqa: E402
+from goofer_tpu_torch.sampler import phrase, render_core  # noqa: E402
 from goofer_tpu_torch.sampler.resampler import GooferResampler  # noqa: E402
 from goofer_tpu_torch.utils.metrics import lsd_db  # noqa: E402
 from tests.fixtures_common import (  # noqa: E402
@@ -353,3 +355,65 @@ def test_render_on_card_matches_cpu(dev, cfg_id):
     d = np.abs(gpu - cpu) / (np.abs(cpu).max() + 1e-12)
     assert float((d > 5e-3).mean()) <= 1e-3, float(d.max())
     assert lsd_db(gpu, cpu, SR) < 0.1
+
+
+@pytest.mark.parametrize("name", ["phrase_b50", "phrase_b80",
+                                  "phrase_sg_b80"])
+def test_pulse_kernel_phrase_shapes(dev, name):
+    """A phrase group's rows in one launch: B = 50 and 80 rows spanning
+    G3-C5 at the K = 32 a heavy group is harmonized to, and the gated sg
+    pass; the onset scratch grows with B."""
+    _, f0_np, gate_np, k = next(c for c in phrase_pulse_cases()
+                                if c[0] == name)
+    f0 = torch.as_tensor(f0_np, device=dev)
+    gate = None if gate_np is None else torch.as_tensor(gate_np, device=dev)
+    _hold_pulse_to_plain(f0, gate, pulse_pass_args(f0_np, gate is not None,
+                                                   k))
+
+
+@pytest.mark.parametrize("name", ["phrase_hp12_b80", "phrase_lp4_b80",
+                                  "phrase_hp6_fry_b160"])
+def test_cascade_kernel_phrase_shapes(dev, name):
+    """A phrase group's rows in one launch, each with its own (B, n)
+    coefficient row, and the fry pair's 160 rows sharing one."""
+    _, x_np, alpha_np, order, btype = next(c for c in phrase_cascade_cases()
+                                           if c[0] == name)
+    x = torch.as_tensor(x_np, device=dev)
+    alpha = torch.as_tensor(alpha_np, device=dev)
+    before = one_pole_cascade.launches
+    got = one_pole_cascade(x, alpha, order, btype)
+    want = scan_iir.one_pole_cascade_plain(x, alpha, order, btype)
+    torch.cuda.synchronize()
+    assert one_pole_cascade.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= CASCADE_TOL * float(
+        x.abs().max())
+
+
+def test_phrase_row_equals_note_alone_on_card(dev, tmp_path):
+    """On the card a phrase's row is the note rendered alone with the same
+    (seed, index) key, the heavy stack's noise included (the draws are
+    keyed per note), and a group launches each kernel once per pass."""
+    import shutil
+    from pathlib import Path
+
+    voice = Path(__file__).parent / "golden" / "voice"
+    shutil.copy(voice / "src.wav", tmp_path / "a.wav")
+    shutil.copy(voice / "src_features.goofy", tmp_path / "a_features.goofy")
+    heavy = "sh30sr30sg40su40sj20st-30vf40es30pd40fw20fsta50"
+    notes = [phrase.NoteSpec(str(tmp_path / "a.wav"), p, length=400,
+                             consonant=60, flags=f)
+             for p, f in (("C4", "t10"), ("G3", heavy), ("E4", "B20"),
+                          ("C5", heavy + "t-20"), ("A3", heavy))]
+    before = pulse_accumulate.launches, one_pole_cascade.launches
+    outs = phrase.render_phrase(notes, seed=5, device=dev)
+    assert pulse_accumulate.launches - before[0] == 1 + 4
+    assert one_pole_cascade.launches - before[1] == 5
+    planned, _ = phrase.plan_phrase(notes, device=dev)
+    for pl, out in zip(planned, outs):
+        alone = render_core.render_note(pl.rs, pl.arrays, pl.scalars,
+                                        (5, pl.index), dev).cpu().numpy()
+        assert out.shape == alone.shape and np.isfinite(out).all()
+        d = np.abs(out - alone) / (np.abs(alone).max() + 1e-12)
+        assert float((d > 5e-3).mean()) <= 1e-3, float(d.max())
+        assert lsd_db(out, alone, SR) < 0.1

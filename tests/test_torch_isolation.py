@@ -22,7 +22,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import goofer_tpu_torch.cli, goofer_tpu_torch.sampler.resampler\n"
         "import goofer_tpu_torch.ops.pulse, goofer_tpu_torch.engine.synth\n"
-        "import goofer_tpu_torch.ops.scan_iir\n"
+        "import goofer_tpu_torch.ops.scan_iir, goofer_tpu_torch.ops.noise\n"
+        "import goofer_tpu_torch.sampler.phrase\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'goofer_tpu'))\n"
         "assert not bad, bad\n"

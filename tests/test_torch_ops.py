@@ -21,7 +21,7 @@ from goofer_tpu.ops import filters as j_filters  # noqa: E402
 from goofer_tpu.ops import interp as j_interp  # noqa: E402
 from goofer_tpu.ops import jitter as j_jitter  # noqa: E402
 from goofer_tpu.ops import stft as j_stft  # noqa: E402
-from goofer_tpu_torch.ops import envelope, filters, interp, jitter, stft  # noqa: E402
+from goofer_tpu_torch.ops import envelope, filters, interp, jitter, noise, stft  # noqa: E402
 
 ATOL = 1e-5
 SR = 44100
@@ -242,7 +242,7 @@ def test_subharm_vibrato():
 
 @pytest.mark.parametrize("sigma,length", [(7.0, 3000), (73.5, 20000)])
 def test_smoothed_unit_noise_same_draw(monkeypatch, sigma, length):
-    """The draw differs by design (torch.Generator vs jax.random); feed
+    """The draw differs by design (ops/noise.py vs jax.random); feed
     both the same NumPy draw and compare the deterministic rest."""
     ds = jitter._decimation(sigma)
     m = length if ds == 1 else length // ds + 2
@@ -253,6 +253,193 @@ def test_smoothed_unit_noise_same_draw(monkeypatch, sigma, length):
     got = jitter.smooth_unit_from_draw(_t(draw), length, sigma, ds)
     assert got.shape == (length,)
     _close(got, want)
-    gen = torch.Generator().manual_seed(0)
-    drawn = jitter.smoothed_unit_noise(gen, length, sigma, torch.device("cpu"))
-    assert drawn.shape == (length,) and float(drawn.abs().max()) <= 1.0
+    keys = torch.as_tensor(noise.stream_keys([0, (0, 1)], 1))[:, 0]
+    drawn = jitter.smoothed_unit_noise(keys, length, sigma)
+    assert drawn.shape == (2, length)
+    # peak-normalized per row, and the rows differ
+    np.testing.assert_allclose(drawn.abs().amax(dim=1).numpy(), 1.0,
+                               atol=1e-5)
+    assert float((drawn[0] - drawn[1]).abs().max()) > 0.1
+
+
+# ---- the same ops on a leading batch axis, against the JAX op under vmap
+
+B = 3
+
+
+def _batched_cases():
+    rng = np.random.default_rng(20)
+    x2 = rng.standard_normal((B, 300)).astype(np.float32)
+    x3 = rng.standard_normal((B, 37, 53)).astype(np.float32)
+    env = np.stack([_env(seed=30 + i, t=40) for i in range(B)])
+    pos_n = rng.uniform(-3.0, 303.0, (B, 101)).astype(np.float32)
+    pos_t = rng.uniform(-3.0, 56.0, (B, 61)).astype(np.float32)
+    pos_b = rng.uniform(-3.0, 40.0, (B, 45)).astype(np.float32)
+    mask = np.zeros((B, 9000), np.float32)
+    for i in range(B):
+        mask[i, 1500 * i: 4000 + 1500 * i] = 1.0
+    sig = rng.standard_normal((B, 5000)).astype(np.float32)
+    spec = (rng.standard_normal((B, 513, 21))
+            + 1j * rng.standard_normal((B, 513, 21))).astype(np.complex64)
+    ratios = np.array([1.05, 0.9, 1.0], np.float32)
+    forms = np.stack([c + 80 * rng.standard_normal((B, 40)) for c in
+                      (700.0, 1250.0, 2600.0, 3400.0)], 1).astype(np.float32)
+    forms[:, :, :6] = 0.0
+    forms[1, 2, 20] = 30000.0
+    shifts = rng.uniform(0.85, 1.2, (B, 4)).astype(np.float32)
+    fry_w = np.clip(rng.uniform(-0.3, 1.2, (B, 40)), 0, 1).astype(np.float32)
+    strength = np.array([0.125, 0.02, 0.3], np.float32)
+    f0 = (220.0 + 10 * rng.standard_normal((B, 9000))).astype(np.float32)
+    f0[:, :1000] = 0.0
+    f0[2] = 0.0
+    ds = jitter._decimation(73.5)
+    draw = rng.standard_normal((B, 20000 // ds + 2)).astype(np.float32)
+    smooth = np.stack([np.sin(np.linspace(0.0, 3.0 + i, 300))
+                       for i in range(B)]).astype(np.float32)
+    jn, vm = jnp.asarray, jax.vmap
+    return {
+        "gather_lerp_rows": (
+            lambda: interp.gather_lerp(_t(x2), _t(pos_n), axis=-1),
+            lambda: vm(lambda a, p: j_interp.gather_lerp(a, p, axis=0))(
+                jn(x2), jn(pos_n)), ATOL),
+        "gather_lerp_frames": (
+            lambda: interp.gather_lerp(_t(x3), _t(pos_t), axis=-1),
+            lambda: vm(lambda a, p: j_interp.gather_lerp(a, p, axis=-1))(
+                jn(x3), jn(pos_t)), ATOL),
+        "gather_lerp_bins": (
+            lambda: interp.gather_lerp(_t(x3), _t(pos_b), axis=1),
+            lambda: vm(lambda a, p: j_interp.gather_lerp(a, p, axis=0))(
+                jn(x3), jn(pos_b)), ATOL),
+        "gather_lerp_shared_pos": (
+            lambda: interp.gather_lerp(_t(x3), _t(pos_t[0]), axis=-1),
+            lambda: vm(lambda a: j_interp.gather_lerp(a, jn(pos_t[0]),
+                                                      axis=-1))(jn(x3)),
+            ATOL),
+        "resample_1d": (
+            lambda: interp.resample_1d(_t(smooth), 173),
+            lambda: vm(lambda a: j_interp.resample_1d(a, 173))(jn(smooth)),
+            ATOL),
+        "gaussian_blur1d": (
+            lambda: filters.gaussian_blur1d(_t(x2), 20.0),
+            lambda: vm(lambda a: j_filters.gaussian_blur1d(a, 20.0))(jn(x2)),
+            ATOL),
+        "gaussian_blur1d_bins": (
+            lambda: filters.gaussian_blur1d(_t(env), 1.75, axis=-2),
+            lambda: vm(lambda a: j_filters.gaussian_blur1d(a, 1.75, axis=0))(
+                jn(env)), ATOL),
+        "gaussian_blur_complex_freq": (
+            lambda: filters.gaussian_blur_complex_freq(_t(spec), 0.5),
+            lambda: vm(lambda a: j_filters.gaussian_blur_complex_freq(
+                a, 0.5))(jn(spec)), ATOL),
+        "smooth_mask_downsampled": (
+            lambda: filters.smooth_mask_downsampled(_t(mask), 100.0, 4),
+            lambda: vm(lambda a: j_filters.smooth_mask_downsampled(
+                a, 100.0, 4))(jn(mask)), ATOL),
+        "stft": (
+            lambda: stft.stft(_t(sig), 1024, 256),
+            lambda: vm(lambda a: j_stft.stft(a, 1024, 256))(jn(sig)),
+            1e-4 * 60.0),
+        "istft": (
+            lambda: stft.istft(_t(spec), 256, length=5000),
+            lambda: vm(lambda a: j_stft.istft(a, 256, length=5000))(jn(spec)),
+            1e-4 * 0.2),
+        "shift_formants_global": (
+            lambda: envelope.shift_formants_global(_t(env), _t(ratios), SR),
+            lambda: vm(lambda a, r: j_env.shift_formants_global(a, r, SR))(
+                jn(env), jn(ratios)), ATOL),
+        "warp_env_by_formants": (
+            lambda: envelope.warp_env_by_formants(
+                _t(env), _t(forms), _t(forms * shifts[:, :, None]), SR),
+            lambda: vm(lambda a, f, g: j_env.warp_env_by_formants(
+                a, f, g, SR))(jn(env), jn(forms),
+                              jn(forms * shifts[:, :, None])), ATOL),
+        "env_shape": (
+            lambda: envelope.env_shape(_t(env), 0.2),
+            lambda: vm(lambda a: j_env.env_shape(a, 0.2))(jn(env)), ATOL),
+        "fry_env_shift": (
+            lambda: envelope.fry_env_shift(_t(env), _t(fry_w), 0.92),
+            lambda: vm(lambda a, w: j_env.fry_env_shift(a, w, 0.92))(
+                jn(env), jn(fry_w)), ATOL),
+        "match_env_frames": (
+            lambda: envelope.match_env_frames(_t(env), 55),
+            lambda: vm(lambda a: j_env.match_env_frames(a, 55))(jn(env)),
+            ATOL),
+        "volume_jitter_vibrato": (
+            lambda: jitter.volume_jitter(None, 9000, SR, speed=150.0,
+                                         strength=_t(strength), vibrato=True),
+            lambda: vm(lambda s: j_jitter.volume_jitter(
+                jax.random.PRNGKey(0), 9000, SR, speed=150.0, strength=s,
+                vibrato=True))(jn(strength)), ATOL),
+        "subharm_vibrato": (
+            lambda: jitter.subharm_vibrato(_t(f0), SR, 75.0, 3.0, 0.01),
+            lambda: vm(lambda a: j_jitter.subharm_vibrato(
+                a, SR, jnp.float32(75.0), jnp.float32(3.0), 0.01))(jn(f0)),
+            -2e-5),
+        "smooth_unit_from_draw": (
+            lambda: jitter.smooth_unit_from_draw(_t(draw), 20000, 73.5, ds),
+            lambda: np.stack([_jax_smooth_unit(d, 20000, 73.5)
+                              for d in draw]), ATOL),
+    }
+
+
+def _jax_smooth_unit(draw, length, sigma):
+    """goofer_tpu's smoothed_unit_noise on a given draw."""
+    real = jax.random.normal
+    jax.random.normal = lambda key, shape, dtype=None: jnp.asarray(draw)
+    try:
+        return np.asarray(j_jitter.smoothed_unit_noise(
+            jax.random.PRNGKey(0), length, sigma))
+    finally:
+        jax.random.normal = real
+
+
+BATCHED = _batched_cases()
+
+
+@pytest.mark.parametrize("name", sorted(BATCHED))
+def test_batched_op_matches_vmap(name):
+    """Each op on (B, ...) rows against the JAX op under jax.vmap, at the
+    single-row tolerance; a negative tolerance is relative (the
+    subharmonic vibrato, whose f0 reaches ~900 Hz: one ulp of its ~100 rad
+    phase on either side, twice test_subharm_vibrato's)."""
+    got, want, tol = BATCHED[name]
+    got, want = got(), np.asarray(want())
+    assert tuple(got.shape) == want.shape
+    _close(got, want, atol=max(tol, 0.0), rtol=max(-tol, 0.0))
+
+
+def _splitmix64(key, i):
+    m = (1 << 64) - 1
+    z = (key + i * 0x9E3779B97F4A7C15) & m
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
+    return z ^ (z >> 31)
+
+
+def test_noise_bits_are_splitmix64():
+    """int64 tensor arithmetic must wrap exactly as SplitMix64's uint64:
+    held to Python integers."""
+    keys = noise.stream_keys([0, (0, 3), 12345], 2)
+    bits = noise.random_bits(torch.as_tensor(keys[:, 1]), 300).numpy()
+    for b in range(3):
+        ku = int(keys[b, 1]) & ((1 << 64) - 1)
+        want = [_splitmix64(ku, i + 1) for i in range(300)]
+        assert [int(v) & ((1 << 64) - 1) for v in bits[b]] == want
+
+
+def test_noise_draws_are_keyed_per_row():
+    """A row's draw depends on its key alone (not on its batch), a longer
+    draw extends a shorter one, and the draws have the moments of their
+    laws (200000 draws: the mean's sigma is 2e-3, 6e-4 for the uniform)."""
+    keys = torch.as_tensor(noise.stream_keys([(7, i) for i in range(4)], 1))
+    keys = keys[:, 0]
+    full = noise.normal(keys, 200000)
+    np.testing.assert_array_equal(noise.normal(keys[2:3], 5000)[0].numpy(),
+                                  full[2, :5000].numpy())
+    u = noise.uniform(keys, 200000)
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    np.testing.assert_allclose(u.mean(dim=1).numpy(), 0.5, atol=4e-3)
+    np.testing.assert_allclose(full.mean(dim=1).numpy(), 0.0, atol=1.2e-2)
+    np.testing.assert_allclose(full.std(dim=1).numpy(), 1.0, atol=1e-2)
+    c = np.corrcoef(full.numpy())
+    assert np.abs(c - np.eye(4)).max() < 1.5e-2

@@ -137,6 +137,27 @@ def test_subharm_pulse_train_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-3)
 
 
+def test_subharm_pulse_train_rows_match_single():
+    """(B, n) rows with per-row weights: each row is peak-normalized over
+    itself (a silent-gated row stays zero), equal to the row alone."""
+    n = 12000
+    f0 = np.stack([_glide(n, gap=False) * np.float32(s)
+                   for s in (1.013, 0.61, 1.4)])
+    mask = np.ones((3, n), dtype=np.float32)
+    mask[0, 4000:5500] = 0.0
+    mask[1] = 0.0
+    weight = np.array([0.9, 0.5, 0.2], np.float32)
+    got = pulse.subharm_pulse_train(torch.as_tensor(f0), SR,
+                                    torch.as_tensor(mask), [12.0],
+                                    torch.as_tensor(weight))
+    assert got.shape == (3, n) and float(got[1].abs().max()) == 0.0
+    for b in range(3):
+        one = pulse.subharm_pulse_train(torch.as_tensor(f0[b]), SR,
+                                        torch.as_tensor(mask[b]), [12.0],
+                                        float(weight[b]))
+        np.testing.assert_allclose(got[b].numpy(), one.numpy(), atol=1e-6)
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("f0_hz", [220.3, 97.1])
 def test_plain_accumulation_matches_pallas_interpret(f0_hz):

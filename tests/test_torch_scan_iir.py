@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -266,3 +267,73 @@ def test_fry_env_shift_matches_jax(t):
                                           0.92))
     np.testing.assert_allclose(got, want, atol=2e-6, rtol=0.0)
     np.testing.assert_array_equal(got[:, : t // 3], env[:, : t // 3])
+
+
+def _batch_rows():
+    """Three rows: voiced with gaps, fully silent, fully voiced."""
+    xs, f0s = zip(*(_signal(40 + i, 2000) for i in range(3)))
+    f0 = np.stack(f0s)
+    f0[1] = 0.0
+    f0[2] = 180.0
+    return np.stack(xs), f0
+
+
+@pytest.mark.parametrize("btype", ["lowpass", "highpass"])
+def test_butter_alpha_rows_match_vmap(btype):
+    """(B, n) f0 with one silent and one voiced row: the any-voiced test
+    and the cutoff are per row, as goofer_tpu's under vmap."""
+    _, f0 = _batch_rows()
+    factor = np.array([1.0, 200.0, 2.5], np.float32)
+    got = scan_iir.butter_alpha(torch.as_tensor(f0), 2000, SR,
+                                torch.as_tensor(factor), btype).numpy()
+    assert got.shape == f0.shape
+    for b in range(3):
+        one = scan_iir.butter_alpha(torch.as_tensor(f0[b]), 2000, SR,
+                                    float(factor[b]), btype).numpy()
+        np.testing.assert_array_equal(got[b], one)
+    # the silent row holds the raw cutoff, in Hz
+    w = 2.0 * np.pi * 200.0
+    want = w / (w + SR) if btype == "lowpass" else SR / (w + SR)
+    np.testing.assert_allclose(got[1], want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("btype,order", [("lowpass", 4), ("highpass", 6)])
+def test_dynamic_butter_rows_match_vmap(btype, order):
+    """(B, n) rows, each with its own f0 row and cutoff factor, in one
+    cascade call, against goofer_tpu under jax.vmap."""
+    x, f0 = _batch_rows()
+    factor = np.array([1.0, 200.0, 2.5], np.float32)
+    before = one_pole_cascade.launches
+    got = scan_iir.dynamic_butter_filter(
+        torch.as_tensor(x), torch.as_tensor(f0), SR, torch.as_tensor(factor),
+        order=order, btype=btype).numpy()
+    assert one_pole_cascade.launches == before      # CPU: the plain version
+    want = np.asarray(jax.vmap(
+        lambda a, f, c: j_scan.dynamic_butter_filter(
+            a, f, SR, c, order=order, btype=btype))(
+        jnp.asarray(x), jnp.asarray(f0), jnp.asarray(factor)))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-5)
+
+
+def test_cascade_pairs_share_alpha():
+    """The fry pair batched: a (2, B, n) stack with one shared (n,)
+    coefficient row is 2B rows of one call, equal to each row alone."""
+    x, _ = _batch_rows()
+    pair = torch.as_tensor(np.stack([x, x[::-1] * 0.5]))
+    alpha = scan_iir.butter_alpha(torch.ones(2000), 2000, SR, 200.0,
+                                  "highpass")
+    got = scan_iir.cascade(pair, alpha, 6, "highpass")
+    assert got.shape == pair.shape
+    for i in range(2):
+        for b in range(3):
+            np.testing.assert_array_equal(
+                got[i, b].numpy(),
+                scan_iir.cascade(pair[i, b], alpha, 6, "highpass").numpy())
+
+
+def test_one_pole_highpass_rows():
+    x, _ = _batch_rows()
+    got = scan_iir.one_pole_highpass(torch.as_tensor(x), SR, 300.0).numpy()
+    want = np.asarray(jax.vmap(lambda a: j_scan.one_pole_highpass(
+        a, SR, 300.0))(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-5)

@@ -2,7 +2,8 @@
 
 goofer_tpu's ``GooferResampler.prepare()`` plans a note from
 tests/fixtures_common.make_synth_features(); ``from_jax_plan`` carries
-the plan across, and both ``render_note_core``s run on it.  Budgets are
+the plan across as a batch of one, and both ``render_note_core``s run on
+it.  Budgets are
 the parity suite's (tests/test_resample_oracle.py): deterministic paths
 (noise stems zeroed, P0) within 5e-3 x peak outside pulse windows whose
 onset can legitimately land one sample off (float32 f0 rounding in the
@@ -81,10 +82,11 @@ def _render_both(features, args, uv0, seed=0):
     rs, arrays, sc = _jax_plan(features, args, uv0)
     out_jax = np.asarray(j_render_note(rs, arrays, sc,
                                        jax.random.PRNGKey(seed)))
-    rs_t, tensors, sc_t = render_core.from_jax_plan(rs, arrays, sc, "cpu")
+    rs_t, tensors, sc_t, keys = render_core.from_jax_plan(
+        rs, arrays, sc, "cpu", seeds=[seed])
     out_t = render_core.render_note_core(
-        rs_t, *(tensors[k] for k in render_core.ARRAY_KEYS), sc_t, seed)
-    return out_t.numpy(), out_jax, (rs, arrays, sc), (rs_t, tensors, sc_t)
+        rs_t, *(tensors[k] for k in render_core.ARRAY_KEYS), sc_t, keys)
+    return out_t[0].numpy(), out_jax, (rs, arrays, sc), (rs_t, tensors, sc_t)
 
 
 @pytest.mark.parametrize(
@@ -106,7 +108,7 @@ def test_render_matches_jax_deterministic(features, cfg_id, pitch, velocity,
     _, f0_t, mask_t = render_core.assemble_f0_mask(
         rs_t, tensors["f0_cut"], tensors["mask_cut"], base_w,
         tensors["pitch_ticks"], sc_t)
-    f0_t, mask_t = f0_t.numpy(), mask_t.numpy()
+    f0_t, mask_t = f0_t[0].numpy(), mask_t[0].numpy()
     np.testing.assert_allclose(f0_t, f0_j, atol=1e-2)
 
     sg_on = rs_t.add_subharm
@@ -178,8 +180,9 @@ def test_render_entry_matches_core(features):
     from_jax_plan's inputs."""
     args = _args("C4", 100, "br30P0", "AA", 300)
     rs, arrays, sc = _jax_plan(features, args, uv0=True)
-    rs_t, tensors, sc_t = render_core.from_jax_plan(rs, arrays, sc, "cpu")
+    rs_t, tensors, sc_t, keys = render_core.from_jax_plan(
+        rs, arrays, sc, "cpu", seeds=[3])
     a = render_core.render_note(rs_t, arrays, sc, 3, "cpu")
     b = render_core.render_note_core(
-        rs_t, *(tensors[k] for k in render_core.ARRAY_KEYS), sc_t, 3)
-    np.testing.assert_array_equal(a.numpy(), b.numpy())
+        rs_t, *(tensors[k] for k in render_core.ARRAY_KEYS), sc_t, keys)
+    np.testing.assert_array_equal(a.numpy(), b[0].numpy())
