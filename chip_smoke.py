@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure raises and the script exits nonzero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the hand-written CUDA kernels (csrc/pulse_accumulate.cu and
-   csrc/one_pole_cascade.cu), one nvcc each, started together, into
+2. build the hand-written CUDA kernels (csrc/pulse_accumulate.cu,
+   csrc/one_pole_cascade.cu, csrc/pitch_viterbi.cu, csrc/lpc_roots.cu and
+   csrc/burg_lpc.cu), one nvcc each, started together, into
    build/goofer_tpu_torch/ and print the build time;
 3. check the pulse kernel (the whole pulse pass: f0 in, pulse train out)
    against its plain PyTorch version on the card at the note render's
@@ -52,7 +53,37 @@ Phases (any failure raises and the script exits nonzero):
    print warm wall time with and without the copy to the host, x
    realtime, device busy, idle share and device kernels per phrase, and
    the 97 notes rendered one by one;
-10. print the kernel summary as one JSON line, then the device line.
+10. check the three analysis kernels against their plain versions on the
+   card, and time them (steps 10-12 run right after step 4): the pitch
+   Viterbi must give the plain version's path and f0 exactly, on the
+   candidates of a whole 2 s recording (B=1, F=338), of 16 ragged cuts (nf
+   from 1 to F), of the folder's largest chunk, and on seeded ones at
+   B=64, F=700, all unvoiced, F=10300 (backpointers in the global scratch)
+   and K=4; printed with its count of dependent steps;
+11. the Burg kernel on the windowed frames of the same recordings (an
+   all-zero frame among them), rtol 1e-3 / atol 1e-4, with the plain
+   version's time and device kernels;
+12. the root-finder kernel on those frames' polynomials and on 64 x 700
+   seeded ones with known roots: matched roots within 1e-4 on rows that
+   converged, the same NaN pattern, known roots found; timed beside
+   torch.linalg.eigvals of the companion matrices (a yardstick only);
+13. one note each with positive st, with fc fd FV P and with velocity 150
+   on the card, held to the port's CPU render within 1 dB LSD (after the
+   heavy stack);
+14. the analysis path: write a 64-file voicebank folder (cuts of the
+   vendored recordings, 0.4-2.0 s), extract it through cli.main (one
+   launch of each analysis kernel per chunk; a second run skips all 64),
+   hold 6 rows to the same files extracted alone (f0 and mask at float16,
+   the same K, knots to one float16 step above the FFT's float32 floor,
+   formants within 1 Hz on >= 99%), compare the voice source with the
+   vendored .goofy (f0 within 1% and voicing on >= 98% of samples), check
+   the recorded vowel's extraction for sanity, render all 12 goldens from
+   fresh directories that hold the source WAV alone (the first render
+   extracts and saves) within their LSD budgets, and print the warm
+   extraction time with and without reads and writes, device busy, idle
+   share, device kernels and each analysis kernel's device ms per folder;
+15. print the phrases, analysis and kernels summaries as one JSON line
+   each, then the device line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
 launches between one pair of CUDA events, enqueued behind a spin kernel
@@ -80,12 +111,21 @@ import numpy as np
 import torch
 
 from goofer_tpu_torch import cli, config
-from goofer_tpu_torch.ops import pulse, scan_iir
-from goofer_tpu_torch.ops.cuda import _build, cascade_kernel, pulse_kernel
+from goofer_tpu_torch.analysis import features, formants, pitch
+from goofer_tpu_torch.io.goofy import load_features
+from goofer_tpu_torch.ops import envelope, pulse, scan_iir
+from goofer_tpu_torch.ops.cuda import (
+    _build,
+    burg_kernel,
+    cascade_kernel,
+    lpc_roots_kernel,
+    pulse_kernel,
+    viterbi_kernel,
+)
 from goofer_tpu_torch.sampler import phrase
 from goofer_tpu_torch.sampler.render_core import render_note
 from goofer_tpu_torch.sampler.resampler import GooferResampler
-from goofer_tpu_torch.utils.audio_io import read_wav
+from goofer_tpu_torch.utils.audio_io import read_wav, read_wav_mono, write_wav
 from goofer_tpu_torch.utils.metrics import lsd_db
 
 REPO = Path(__file__).resolve().parent
@@ -123,7 +163,32 @@ HEAVY_CASCADE_LAUNCHES = 5
 HEAVY_PULSE_LAUNCHES = 4
 SR = 44100
 HOP = 256
+N_FFT = 1024
 N_CHECK = 40000
+# the extraction bank: 64 cuts of these recorded voices
+BANK_FILES = 64
+VOICEBANK_SOURCES = (
+    "tests/golden/voice/src.wav", "_input.wav", "_input_harmonic.wav",
+    "_input_breathiness.wav", "_input_unvoiced.wav",
+    "_input_reconstruct.wav", "tests/golden/ref/src.wav")
+# the formant tracker's LPC order (2 x 5 formants)
+LPC_ORDER = 10
+# matched roots of the kernel and the plain version on rows that
+# converged: both iterate to the same roots, float32 rounding apart
+ROOTS_TOL = 1e-4
+# Burg coefficients: the kernel's and torch.sum's orders of the 551-term
+# dot products differ, and the recursion carries their rounding along
+BURG_RTOL = 1e-3
+BURG_ATOL = 1e-4
+# four float32 roundings of a frame's largest bin: what one bin of the
+# float32 FFT of that frame can differ by between two batch sizes
+KNOT_F32_FLOOR = 5e-7
+# operations of one Viterbi transition, one each: the two floors, the
+# division, log2, abs, the product, the subtraction and the compare
+VITERBI_OPS_PER_TRANSITION = 8
+# torch.linalg.eigvals solves the companion matrices one by one: timed
+# only on cases up to this many rows
+EIGVALS_MAX_ROWS = 10000
 # the phrases' notes: 60 + 500 ms (50 of them), 60 + 690 or 750 ms (80)
 N_PHRASE_SHORT = 24696
 N_PHRASE_LONG = 33075
@@ -1003,6 +1068,646 @@ def phrase_slice(tmp: Path) -> dict:
     return out
 
 
+def recording(rel: str) -> np.ndarray:
+    """One vendored recording as mono float32 at SR."""
+    y, sr = read_wav_mono(REPO / rel)
+    if sr != SR:
+        raise AssertionError(f"{rel}: {sr} Hz, expected {SR}")
+    return y.astype(np.float32)
+
+
+def voicebank_cuts() -> list[np.ndarray]:
+    """The 64 files of the extraction bank: cuts of the vendored
+    recordings at seeded offsets, 0.4-2.0 s long (a recording shorter than
+    the drawn length is taken whole), about 75 s of real voices in many
+    distinct lengths."""
+    rng = np.random.default_rng(2)
+    sources = [recording(rel) for rel in VOICEBANK_SOURCES]
+    cuts = []
+    for i in range(BANK_FILES):
+        y = sources[i % len(sources)]
+        n = min(len(y), int(rng.uniform(0.4, 2.0) * SR))
+        start = int(rng.integers(0, len(y) - n + 1))
+        cuts.append(y[start:start + n])
+    return cuts
+
+
+def pcm16(y: np.ndarray) -> np.ndarray:
+    """``y`` as write_wav stores and read_wav_mono returns it."""
+    q = np.round(np.clip(y.astype(np.float64), -1.0, 32767.0 / 32768.0)
+                 * 32768.0)
+    return (q / 32768.0).astype(np.float32)
+
+
+def bank_chunk(dev):
+    """The device inputs of the bank's largest chunk (most rows x frames)
+    as extract_features_batch forms it: (y, n_true, p_starts, p_nf,
+    f_starts), and its file count."""
+    cuts = [pcm16(y) for y in voicebank_cuts()]
+    plan = list(features.chunk_plan([len(y) for y in cuts], HOP,
+                                    features.EXTRACT_CHUNK_FILES,
+                                    features.EXTRACT_CHUNK_FRAMES))
+    n_pad, part = max(plan, key=lambda c: len(c[1]) * c[0])
+    inputs = features.chunk_inputs([cuts[i] for i in part], n_pad, SR, HOP)
+    return tuple(torch.as_tensor(a, device=dev) for a in inputs[:5]), len(part)
+
+
+def ragged_rows(dev, batch: int = 16):
+    """``batch`` cuts of the recordings with ragged lengths, from one too
+    short for a second pitch frame (nf = 1) to whole 2 s recordings
+    (nf = F): the padded waveforms, true counts and both frame grids with
+    F the longest row's frame count."""
+    sources = [recording(rel) for rel in VOICEBANK_SOURCES[:6]]
+    rng = np.random.default_rng(3)
+    lengths = [1900, len(sources[0]), len(sources[1])] + [
+        int(rng.uniform(0.1, 2.0) * SR) for _ in range(batch - 3)]
+    ys = [sources[i % 6][:n] for i, n in enumerate(lengths)]
+    cfg = pitch.PitchConfig()
+    p_grids = [pitch._frame_grid(len(y), SR, HOP / SR,
+                                 min(pitch.pitch_window_len(SR, cfg),
+                                     max(16, len(y)))) for y in ys]
+    f_grids = [formants.formant_frame_grid(len(y), SR, HOP / SR) for y in ys]
+    yb = np.zeros((batch, max(lengths) + 8 * HOP), np.float32)
+    for j, y in enumerate(ys):
+        yb[j, :len(y)] = y
+    p_starts, p_nf = pitch.padded_grid(p_grids)
+    f_starts, _ = pitch.padded_grid(f_grids)
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        yb, np.array(lengths, np.int32), p_starts, p_nf, f_starts))
+
+
+def seeded_candidates(batch: int, frames: int, seed: int,
+                      unvoiced_only: bool = False):
+    """Pitch candidates as the tracker makes them, from a generator: a
+    wandering fundamental with its octave and fifth relatives at falling
+    strengths, a quarter of the slots empty (-1e9), unvoiced stretches,
+    and ragged frame counts (row 0 full, row 1 a single frame)."""
+    rng = np.random.default_rng(seed)
+    base = 110.0 * 2 ** rng.uniform(0, 2, (batch, 1)) * 2 ** np.cumsum(
+        0.01 * rng.standard_normal((batch, frames)), axis=1)
+    k = 6
+    mult = np.array([1.0, 0.5, 2.0, 1.5, 3.0, 0.75])
+    freqs = np.clip(base[..., None] * mult * (1 + 0.01 * rng.standard_normal(
+        (batch, frames, k))), 37.5, 950.0)
+    strengths = rng.uniform(0.3, 0.95, (batch, frames, k)) * np.array(
+        [1.0, 0.8, 0.8, 0.6, 0.5, 0.5])
+    quiet = np.sin(2 * np.pi * (np.arange(frames) / 97.0
+                                + rng.random((batch, 1)))) > 0.6
+    strengths[quiet] *= 0.3
+    strengths[rng.random((batch, frames, k)) < 0.25] = -1e9
+    if unvoiced_only:
+        strengths[:] = -1e9
+    unvoiced = 0.45 + np.maximum(0.0, rng.normal(-0.5, 1.0, (batch, frames)))
+    nf = rng.integers(1, frames + 1, batch)
+    nf[0] = frames
+    if batch > 1:
+        nf[1] = 1
+    return (freqs.astype(np.float32), strengths.astype(np.float32),
+            unvoiced.astype(np.float32), nf.astype(np.int32))
+
+
+def viterbi_cases(dev):
+    """(name, freqs, strengths, unvoiced_strength, nf) on ``dev``: the
+    candidates of a whole 2 s recording (B = 1, F = 338), of 16 ragged cuts
+    (nf from 1 to F), of the bank's largest chunk, and seeded ones at B =
+    64, F = 700, all unvoiced, and a long row whose backpointers overflow
+    the kernel's shared memory into its global scratch."""
+    def put(case):
+        return tuple(torch.as_tensor(a, device=dev) for a in case)
+
+    whole = torch.as_tensor(recording(VOICEBANK_SOURCES[0])[None], device=dev)
+    y, _, p_starts, p_nf, _ = ragged_rows(dev)
+    (yc, _, pc_starts, pc_nf, _), _ = bank_chunk(dev)
+    dt = HOP / SR
+    cases = [
+        ("real_b1_f338", *pitch.viterbi_inputs(whole, SR, dt)),
+        ("real_b16_ragged", *pitch.viterbi_inputs(y, SR, dt, starts=p_starts,
+                                                  nf=p_nf)),
+        ("bank_chunk", *pitch.viterbi_inputs(yc, SR, dt, starts=pc_starts,
+                                             nf=pc_nf)),
+        ("seeded_b64_f700", *put(seeded_candidates(64, 700, 0))),
+        ("unvoiced_b4_f338", *put(seeded_candidates(4, 338, 1, True))),
+        ("long_b2_f10300", *put(seeded_candidates(2, 10300, 2))),
+    ]
+    if cases[0][1].shape[1] != 338:
+        raise AssertionError(f"a 2 s recording gave {cases[0][1].shape[1]} "
+                             "pitch frames, expected 338")
+    if 10300 * 7 <= viterbi_kernel.SHARED_BACK_BYTES:
+        raise AssertionError("the long row fits the kernel's shared memory")
+    return cases
+
+
+def host_ms(fn) -> float:
+    """Wall ms of one call of ``fn`` with the device drained around it:
+    for the plain versions, loops of thousands of small launches."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_viterbi_kernel(cases):
+    """Kernel vs viterbi_plain on the card, exact equality of f0 and path;
+    returns the largest |f0 diff| in Hz and the count of path frames that
+    differ, both measured and both 0 when this returns, and each case's
+    (B, F, dependent steps, kernel ms, plain ms, bound ms, what bounds
+    it)."""
+    vu, oj = pitch.transition_costs(pitch.PitchConfig(), HOP / SR)
+    rows = {}
+    worst, worst_frames = 0.0, 0
+    for name, freqs, strengths, unvoiced, nf in cases:
+        args = (freqs, strengths, unvoiced, nf, vu, oj)
+        f0, path = viterbi_kernel.pitch_viterbi(*args)
+        want_f0, want_path = pitch.viterbi_plain(*args)
+        torch.cuda.synchronize()
+        err = float((f0 - want_f0).abs().max())
+        bad = int((path.long() != want_path).sum())
+        if not (err == 0.0 and bad == 0):
+            raise AssertionError(f"pitch_viterbi {name}: {bad} frames of the "
+                                 "path differ from the plain version's, f0 "
+                                 f"by up to {err} Hz")
+        worst, worst_frames = max(worst, err), max(worst_frames, bad)
+        if name.startswith("unvoiced") and float(f0.abs().max()) != 0.0:
+            raise AssertionError(f"pitch_viterbi {name}: voiced frames")
+        batch, frames, k = freqs.shape
+        ms = cuda_ms(lambda: viterbi_kernel.pitch_viterbi(*args))
+        p_ms = host_ms(lambda: pitch.viterbi_plain(*args))
+        steps = int(nf.max()) - 1
+        live = int(torch.clamp(nf - 1, min=0).sum())
+        # candidates, strengths, unvoiced and nf read once, f0 and the
+        # path written once; per live frame (K+1)^2 transitions
+        bound, bound_by = bound_ms(
+            4 * batch * frames * (2 * k + 1) + 4 * batch
+            + 8 * batch * frames,
+            VITERBI_OPS_PER_TRANSITION * (k + 1) ** 2 * live)
+        voiced = float((f0 > 0).float().mean())
+        print(f"pitch_viterbi {name}: B={batch} F={frames} K={k} nf "
+              f"{int(nf.min())}-{int(nf.max())} voiced share {voiced:.3f} "
+              f"max|f0 diff|={err} Hz, {bad} path frames differ; kernel "
+              f"{ms:.5f} ms ({steps} dependent steps, "
+              f"{ms * 1e3 / max(steps, 1):.3f} us per step) plain "
+              f"{p_ms:.2f} ms bound {bound:.6f} ms ({bound_by})")
+        rows[name] = (batch, frames, steps, ms, p_ms, bound, bound_by)
+    return worst, worst_frames, rows
+
+
+def known_root_polys(rows: int, seed: int, order: int = 10):
+    """(coeffs (rows, order + 1) float32 monic, roots (rows, order)
+    complex128): real polynomials with order / 2 conjugate root pairs
+    inside the unit circle, like stable LPC polynomials, their angles kept
+    apart so that float32 coefficients still pin the roots."""
+    rng = np.random.default_rng(seed)
+    half_n = order // 2
+    r = rng.uniform(0.6, 0.98, (rows, half_n))
+    th = (np.arange(half_n) + 0.5
+          + rng.uniform(-0.3, 0.3, (rows, half_n))) * np.pi / half_n
+    half = r * np.exp(1j * th)
+    roots = np.concatenate([half, half.conj()], axis=1)
+    coeffs = np.ones((rows, 1), np.complex128)
+    for j in range(order):
+        coeffs = (np.concatenate([coeffs, np.zeros((rows, 1))], axis=1)
+                  - roots[:, j:j + 1] * np.concatenate(
+                      [np.zeros((rows, 1)), coeffs], axis=1))
+    return coeffs.real.astype(np.float32), roots
+
+
+def lpc_cases(dev):
+    """(name, windowed frames (rows, 551) float32 or None, coeffs (rows, 11)
+    or None, known roots or None) on ``dev``: the Burg frames of a whole
+    recording (plus one all-zero frame), of the 16 ragged cuts and of the
+    bank's largest chunk, and 64 x 700 seeded polynomials with known
+    roots.  Coefficients of a frames case come from the Burg kernel."""
+    dt = HOP / SR
+    whole = torch.as_tensor(recording(VOICEBANK_SOURCES[0])[None], device=dev)
+    one = formants.lpc_frames(whole, SR, dt)[0][0]
+    one = torch.cat([one, torch.zeros_like(one[:1])])
+    y, n_true, _, _, f_starts = ragged_rows(dev)
+    ragged = formants.lpc_frames(y, SR, dt, starts=f_starts,
+                                 n_true=n_true.long())[0]
+    (yc, nc, _, _, fc_starts), _ = bank_chunk(dev)
+    chunk = formants.lpc_frames(yc, SR, dt, starts=fc_starts,
+                                n_true=nc.long())[0]
+    coeffs, roots = known_root_polys(64 * 700, 4)
+    return [
+        ("real_b1", one.contiguous(), None, None),
+        ("real_b16_ragged", ragged.reshape(-1, ragged.shape[-1]), None, None),
+        ("bank_chunk", chunk.reshape(-1, chunk.shape[-1]), None, None),
+        ("seeded_64x700", None, torch.as_tensor(coeffs, device=dev), roots),
+    ]
+
+
+def check_burg_kernel(cases):
+    """Burg kernel vs burg_coeffs_plain on the card for every case that has
+    frames; returns the worst max |diff|, each case's coefficients and its
+    (rows, wlen, kernel ms, plain ms, plain device kernels, bound ms, what
+    bounds it)."""
+    worst = 0.0
+    rows, coeffs = {}, {}
+    for name, frames, given, _ in cases:
+        if frames is None:
+            coeffs[name] = given
+            continue
+        got = burg_kernel.burg_lpc(frames, LPC_ORDER)
+        want = formants.burg_coeffs_plain(frames, LPC_ORDER)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"burg_lpc {name}: non-finite coefficients")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=BURG_RTOL, atol=BURG_ATOL):
+            raise AssertionError(f"burg_lpc {name}: max |diff| {err} beyond "
+                                 f"rtol {BURG_RTOL} atol {BURG_ATOL}")
+        n, wlen = frames.shape
+        ms = cuda_ms(lambda: burg_kernel.burg_lpc(frames, LPC_ORDER))
+        p_ms = cuda_ms(lambda: formants.burg_coeffs_plain(frames, LPC_ORDER),
+                       PLAIN_REPS, gap_free=False)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            formants.burg_coeffs_plain(frames, LPC_ORDER)
+            torch.cuda.synchronize()
+        p_kernels = len(device_busy(prof)[1])
+        # frames read once, coefficients written once; per step and live
+        # sample 6 flops of the two sums and 4 of the two updates
+        bound, bound_by = bound_ms(
+            4 * n * (wlen + LPC_ORDER + 1),
+            10 * n * sum(wlen - m for m in range(1, LPC_ORDER + 1)))
+        print(f"burg_lpc {name}: rows={n} wlen={wlen} order={LPC_ORDER} "
+              f"max|diff|={err:.3e} kernel {ms:.5f} ms plain {p_ms:.4f} ms "
+              f"in {p_kernels} device kernels bound {bound:.5f} ms "
+              f"({bound_by})")
+        worst = max(worst, err)
+        rows[name] = (n, wlen, ms, p_ms, p_kernels, bound, bound_by)
+        coeffs[name] = got
+    return worst, coeffs, rows
+
+
+def matched_root_error(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per row the largest distance from a root of either (rows, order)
+    set to the nearest root of the other."""
+    d = (got[:, :, None] - want[:, None, :]).abs()
+    return torch.maximum(d.amin(dim=2).amax(dim=1), d.amin(dim=1).amax(dim=1))
+
+
+def check_lpc_roots_kernel(cases, coeffs):
+    """Root kernel vs poly_roots_dk_plain on the card: roots matched per
+    row, max |diff| <= ROOTS_TOL on rows whose plain roots all pass the
+    convergence guard, the same NaN pattern everywhere, known roots found;
+    returns the worst matched diff and each case's (rows, converged share,
+    kernel ms, plain ms, eigvals ms, bound ms, what bounds it)."""
+    worst = 0.0
+    rows = {}
+    for name, _, _, known in cases:
+        a = coeffs[name].contiguous()
+        got = lpc_roots_kernel.lpc_roots(a)
+        want = formants.poly_roots_dk_plain(a)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(torch.view_as_real(got)),
+                           torch.isnan(torch.view_as_real(want))):
+            raise AssertionError(f"lpc_roots {name}: NaNs where the plain "
+                                 "version has none, or the reverse")
+        conv = formants.converged_roots(a, want).all(dim=1)
+        if not conv.any():
+            raise AssertionError(f"lpc_roots {name}: no converged row")
+        err = float(matched_root_error(got[conv], want[conv]).max())
+        if not err <= ROOTS_TOL:
+            raise AssertionError(f"lpc_roots {name}: matched roots differ by "
+                                 f"{err} > {ROOTS_TOL} on converged rows")
+        note = ""
+        if known is not None:
+            truth = torch.as_tensor(known, device=a.device).to(
+                torch.complex64)
+            k_err = float(matched_root_error(got[conv], truth[conv]).max())
+            note = f" known roots within {k_err:.3e}"
+            if not k_err <= 1e-3:
+                raise AssertionError(f"lpc_roots {name}: known roots missed "
+                                     f"by {k_err}")
+        n, order = got.shape
+        ms = cuda_ms(lambda: lpc_roots_kernel.lpc_roots(a))
+        p_ms = host_ms(lambda: formants.poly_roots_dk_plain(a))
+        # the library's way to the same roots: eigenvalues of the
+        # companion matrices (a yardstick; the port never calls it)
+        comp = torch.zeros((n, order, order), device=a.device)
+        comp[:, 0, :] = -a[:, 1:]
+        comp[:, torch.arange(1, order), torch.arange(order - 1)] = 1.0
+        lib_ms = None
+        if n <= EIGVALS_MAX_ROWS:
+            torch.linalg.eigvals(comp[:8])
+            lib_ms = host_ms(lambda: torch.linalg.eigvals(comp))
+        # coefficients read once, roots written once; per root and
+        # iteration `order` Horner steps of 7 flops, order - 1 difference
+        # products of 8 and a division and update of 14
+        bound, bound_by = bound_ms(
+            4 * n * (order + 1) + 8 * n * order,
+            n * order * lpc_roots_kernel.DK_ITERS
+            * (7 * order + 8 * (order - 1) + 14))
+        share = float(conv.float().mean())
+        print(f"lpc_roots {name}: rows={n} order={order} converged rows "
+              f"{share:.4f} matched max|diff|={err:.3e}{note} kernel "
+              f"{ms:.5f} ms plain {p_ms:.2f} ms eigvals "
+              f"{'not timed' if lib_ms is None else f'{lib_ms:.2f} ms'} "
+              f"bound {bound:.6f} ms ({bound_by})")
+        worst = max(worst, err)
+        rows[name] = (n, share, ms, p_ms, lib_ms, bound, bound_by)
+    return worst, rows
+
+
+def _analysis_launches():
+    return (viterbi_kernel.pitch_viterbi.launches,
+            lpc_roots_kernel.lpc_roots.launches,
+            burg_kernel.burg_lpc.launches)
+
+
+def _f16_track_equal(name, got, want, share: float = 0.999):
+    """Two per-sample tracks at the .goofy's float16: equal on at least
+    ``share`` of samples and within one float16 step elsewhere (a float32
+    rounding that differs with the batch size can flip a value sitting on
+    a float16 rounding boundary)."""
+    a = np.asarray(got, np.float16)
+    b = np.asarray(want, np.float16)
+    same = a == b
+    step = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    if a.shape != b.shape or same.mean() < share or np.any(
+            np.abs(a.astype(np.float32) - b.astype(np.float32))[~same]
+            > step[~same].astype(np.float32) * 1.001):
+        raise AssertionError(f"{name}: float16 tracks differ on "
+                             f"{1 - same.mean():.5f} of samples")
+    return float(same.mean())
+
+
+def knot_steps(a, b) -> float:
+    """The largest difference of two (K, T) float16 log-envelope knot
+    arrays in float16 steps at each value's size, beyond the float32 floor
+    of the analysis: a frame's FFT rounds every bin relative to the
+    frame's largest (cuFFT's plan, and so its rounding, changes with the
+    batch size), so a knot at envelope e of a frame with peak p carries
+    KNOT_F32_FLOOR * p / e of log-domain rounding before it is stored."""
+    a = np.asarray(a).astype(np.float32)
+    b = np.asarray(b).astype(np.float32)
+    big = np.maximum(np.abs(a), np.abs(b))
+    step = np.spacing(big.astype(np.float16)).astype(np.float32)
+    peak = np.maximum(a, b).max(axis=0, keepdims=True)
+    floor = KNOT_F32_FLOOR * np.exp(peak - np.minimum(a, b))
+    return float((np.maximum(np.abs(a - b) - floor, 0.0) / step).max())
+
+
+def _formants_close(name, got, want, hz: float = 1.0, share: float = 0.99):
+    """Formant dicts {k: (T,)}: the share of (formant, frame) entries
+    within ``hz``; raises under ``share``."""
+    g = np.stack([np.asarray(got[k], np.float64) for k in (1, 2, 3, 4)])
+    w = np.stack([np.asarray(want[k], np.float64) for k in (1, 2, 3, 4)])
+    ok = float((np.abs(g - w) <= hz).mean()) if g.shape == w.shape else 0.0
+    if ok < share:
+        raise AssertionError(f"{name}: formant tracks {g.shape} vs {w.shape}, "
+                             f"{ok:.4f} of entries within {hz} Hz")
+    return ok
+
+
+def _decoded_db(knots: dict) -> np.ndarray:
+    """A knot dict's log-envelope in dB, (n_bins, T), decoded on the card."""
+    k = torch.as_tensor(np.asarray(knots["knot_vals_log"], np.float32),
+                        device=config.get_device())
+    env = envelope.decode_env_from_knots(k, knots["sr"], knots["n_fft"],
+                                         knots["n_bins"])
+    return (20.0 * torch.log10(env)).cpu().numpy()
+
+
+def render_goldens_from_wav(tmp: Path, kind: str) -> None:
+    """The goldens of source ``kind`` through the CLI on CUDA from a fresh
+    directory that holds the source WAV alone: the first render extracts
+    and saves the .goofy, and every output is held to its golden's LSD
+    budget."""
+    work = tmp / f"fresh_{kind}"
+    work.mkdir()
+    src = work / "src.wav"
+    shutil.copy(REPO / "tests" / "golden" / kind / "src.wav", src)
+    before = _analysis_launches()
+    for k, (name, *args) in _golden_configs():
+        if k != kind:
+            continue
+        out = work / f"out_{name}.wav"
+        if cli.main([str(src), str(out)] + [str(a) for a in args]) != 0:
+            raise AssertionError(f"render {name} from the WAV: cli rc != 0")
+        ours, sr = read_wav(out)
+        golden, sr_g = read_wav(REPO / "tests" / "golden" / kind
+                                / f"out_{name}.wav")
+        if sr != sr_g or len(ours) != len(golden) or not np.isfinite(
+                ours).all():
+            raise AssertionError(f"render {name} from the WAV: {len(ours)} "
+                                 f"samples at {sr} Hz, golden {len(golden)}")
+        lsd = lsd_db(np.asarray(ours, np.float32),
+                     np.asarray(golden, np.float32), sr)
+        print(f"render {name} from the port's own extraction: LSD "
+              f"{lsd:.3f} dB (budget {LSD_BUDGET_DB[name]:.2f})")
+        if not lsd <= LSD_BUDGET_DB[name]:
+            raise AssertionError(f"render {name} from the WAV: LSD {lsd} dB "
+                                 f"over budget {LSD_BUDGET_DB[name]}")
+    if not (work / "src_features.goofy").exists():
+        raise AssertionError(f"{kind}: the first render saved no .goofy")
+    ran = [b - a for a, b in zip(before, _analysis_launches())]
+    if ran != [1, 1, 1]:
+        raise AssertionError(f"{kind}: the renders extracted with {ran} "
+                             "Viterbi, root and Burg launches, expected one "
+                             "of each (the first render only)")
+
+
+def check_real_voice(feats) -> None:
+    """Sanity of what was extracted from the recorded sung vowel
+    (tests/test_analysis.py:test_real_voice_extraction_sane)."""
+    env, f0i, vmask, forms, _ = feats
+    if not (np.isfinite(env).all() and env.min() >= 0.0):
+        raise AssertionError("real voice: envelope negative or non-finite")
+    voiced = float((vmask > 0).mean())
+    f0v = f0i[vmask > 0]
+    lo, hi = np.percentile(f0v, [5, 95])
+    med = {}
+    for k in (1, 2, 3):
+        tr = np.asarray(forms[k], np.float64)
+        good = tr[np.isfinite(tr) & (tr > 0)]
+        if not len(good) > 0.8 * tr.size:
+            raise AssertionError(f"real voice: F{k} found on {len(good)} of "
+                                 f"{tr.size} frames")
+        med[k] = float(np.median(good))
+    print(f"real voice (_input.wav): voiced {voiced:.3f}, f0 median "
+          f"{np.median(f0v):.1f} Hz (5-95% {lo:.1f}-{hi:.1f}), formant "
+          f"medians {med[1]:.0f} {med[2]:.0f} {med[3]:.0f} Hz")
+    if not (voiced > 0.8 and 150.0 < np.median(f0v) < 260.0 and lo > 100.0
+            and hi < 350.0 and 300.0 < med[1] < 900.0
+            and 900.0 < med[2] < 2500.0 and 1800.0 < med[3] < 3500.0
+            and med[1] < med[2] < med[3]):
+        raise AssertionError("real voice: extraction out of the vocal range")
+
+
+def analysis_slice(tmp: Path) -> dict:
+    """Drive the analysis path on CUDA: extract a 64-file voicebank
+    folder through the CLI (the three analysis kernels' launch counters
+    set to 0 just before and read just after), check what was written,
+    render the goldens from the port's own extraction, and take the
+    numbers.  Returns them, with the path's launches under "launches"."""
+    dev = torch.device("cuda")
+    bank = tmp / "bank"
+    bank.mkdir()
+    cuts = voicebank_cuts()
+    for i, y in enumerate(cuts):
+        write_wav(bank / f"v{i:02d}.wav", y, SR)
+    audio_s = sum(len(y) for y in cuts) / SR
+    plan = list(features.chunk_plan([len(y) for y in cuts], HOP,
+                                    features.EXTRACT_CHUNK_FILES,
+                                    features.EXTRACT_CHUNK_FRAMES))
+
+    for k in (viterbi_kernel.pitch_viterbi, lpc_roots_kernel.lpc_roots,
+              burg_kernel.burg_lpc):
+        k.launches = 0
+    if cli.main([str(bank)]) != 0:
+        raise AssertionError("folder extraction: cli rc != 0")
+    launches = _analysis_launches()
+    goofy = sorted(bank.glob("*_features.goofy"))
+    if len(goofy) != BANK_FILES:
+        raise AssertionError(f"folder extraction wrote {len(goofy)} .goofy "
+                             f"files for {BANK_FILES} WAVs")
+    if list(launches) != [len(plan)] * 3:
+        raise AssertionError(
+            f"folder extraction: {launches} Viterbi, root and Burg launches "
+            f"for {len(plan)} chunks, expected one of each per chunk")
+    stamps = [p.stat().st_mtime_ns for p in goofy]
+    if cli.main([str(bank)]) != 0 or stamps != [
+            p.stat().st_mtime_ns for p in goofy] or list(
+                _analysis_launches()) != list(launches):
+        raise AssertionError("folder extraction: the second run did not "
+                             "skip every file")
+    print(f"folder extraction: {BANK_FILES} files, {audio_s:.2f} s of "
+          f"audio, {len({len(y) for y in cuts})} distinct lengths, "
+          f"{len(plan)} chunks of {[len(p) for _, p in plan]} files at "
+          f"{[n for n, _ in plan]} padded samples; launches: Viterbi "
+          f"{launches[0]} roots {launches[1]} Burg {launches[2]}; the second "
+          "run skipped all")
+
+    # batch rows against the same files alone
+    ks = []
+    for i in (0, 9, 23, 38, 51, 63):
+        y, _ = read_wav_mono(bank / f"v{i:02d}.wav")
+        _, f0_a, m_a, forms_a, kn_a = features.extract_features(
+            y, SR, N_FFT, HOP, dense=False)
+        kn_b, f0_b, m_b, forms_b, _, ylen = load_features(
+            bank / f"v{i:02d}_features.goofy")
+        name = f"folder row {i} vs the file alone"
+        _f16_track_equal(name + " (f0)", f0_b, f0_a)
+        _f16_track_equal(name + " (mask)", m_b, m_a)
+        k_a, k_b = kn_a["knot_vals_log"], kn_b["knot_vals_log"]
+        if ylen != len(y) or k_a.shape != k_b.shape:
+            raise AssertionError(f"{name}: K {k_b.shape[0]} vs {k_a.shape[0]} "
+                                 f"or length {ylen} vs {len(y)}")
+        if knot_steps(k_a, k_b) > 1.001:
+            raise AssertionError(f"{name}: knots differ by "
+                                 f"{knot_steps(k_a, k_b)} float16 steps")
+        _formants_close(name, forms_b, forms_a)
+        ks.append(k_a.shape[0])
+    print(f"folder rows (0, 9, 23, 38, 51, 63) equal the files alone: f0 "
+          f"and mask at float16, K {ks}, knots to 1 float16 step, formants "
+          "within 1 Hz on >= 99%")
+
+    # against the cache the JAX package wrote for the same recording
+    voice = REPO / "tests" / "golden" / "voice"
+    y, _ = read_wav_mono(voice / "src.wav")
+    ours = features.extract_features(y, SR, N_FFT, HOP)
+    kn_r, f0_r, m_r, _, _, _ = load_features(voice / "src_features.goofy")
+    agree = ((ours[2] > 0) == (m_r > 0)) & (
+        (m_r <= 0) | (np.abs(ours[1] - f0_r) <= 0.01 * f0_r))
+    db_o, db_r = _decoded_db(ours[4]), _decoded_db(kn_r)
+    t = min(db_o.shape[1], db_r.shape[1])
+    env_db = np.abs(db_o[:, :t] - db_r[:, :t])
+    print(f"voice src vs the vendored .goofy: voicing and f0 (1%) agree on "
+          f"{agree.mean():.4f} of samples; K {ours[4]['knot_vals_log'].shape[0]}"
+          f" vs {kn_r['knot_vals_log'].shape[0]}; log-envelope |diff| mean "
+          f"{env_db.mean():.3f} dB, max {env_db.max():.2f} dB")
+    if not agree.mean() >= 0.98:
+        raise AssertionError("voice src: f0 or voicing disagree with the "
+                             f"vendored .goofy on {1 - agree.mean():.4f}")
+
+    y_in, _ = read_wav_mono(REPO / "_input.wav")
+    check_real_voice(features.extract_features(y_in, SR, N_FFT, HOP))
+    render_goldens_from_wav(tmp, "voice")
+    render_goldens_from_wav(tmp, "ref")
+
+    # the numbers: analysis alone on decoded files, then the folder run
+    decoded = [read_wav_mono(p)[0] for p in sorted(bank.glob("v*.wav"))]
+
+    def extract():
+        features.extract_features_batch(decoded, SR, N_FFT, HOP, dense=False)
+
+    def folder():
+        for p in goofy:
+            p.unlink()
+        if cli.main([str(bank)]) != 0:
+            raise AssertionError("folder extraction: cli rc != 0")
+
+    extract_ms = _median_ms(extract, 5)
+    folder_ms = _median_ms(folder, 3, warm=1)
+    reps = 3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            extract()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, kernels = device_busy(prof)
+
+    def kernel_ms(kname):
+        return sum(e.time_range.elapsed_us() for e in kernels
+                   if kname in e.name) / 1e3 / reps
+
+    out = {
+        "launches": launches, "files": BANK_FILES, "audio_s": audio_s,
+        "chunks": len(plan), "chunk_files": [len(p) for _, p in plan],
+        "extract_ms": extract_ms, "folder_ms": folder_ms,
+        "x_realtime": audio_s * 1e3 / extract_ms,
+        "x_realtime_folder": audio_s * 1e3 / folder_ms,
+        "device_busy_ms": busy_us / 1e3 / reps,
+        "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "device_kernels": len(kernels) / reps,
+        "viterbi_ms": kernel_ms("pitch_viterbi_kernel"),
+        "roots_ms": kernel_ms("lpc_roots_kernel"),
+        "burg_ms": kernel_ms("burg_lpc_kernel"),
+        "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+    }
+    print(f"analysis: {BANK_FILES} files, {audio_s:.2f} s of audio in "
+          f"{len(plan)} chunks: warm {extract_ms:.3f} ms without reads and "
+          f"writes ({out['x_realtime']:.1f} x realtime), {folder_ms:.3f} ms "
+          f"with them ({out['x_realtime_folder']:.1f} x); profiled: device "
+          f"busy {out['device_busy_ms']:.3f} ms, idle share "
+          f"{out['idle_share']:.3f}, device kernels {out['device_kernels']:.1f}"
+          f", Viterbi kernel {out['viterbi_ms']:.4f} ms, root kernel "
+          f"{out['roots_ms']:.4f} ms, Burg kernel {out['burg_ms']:.4f} ms "
+          f"per folder; peak device memory so far {out['peak_mib']:.0f} MiB")
+    return out
+
+
+def check_flag_notes(tmp: Path) -> None:
+    """One note each with positive st, with fc fd FV P and with velocity
+    other than 100 on the card, held to the port's CPU render of the same
+    note and seed (the noise is counter-based, the same on both devices):
+    LSD <= 1 dB."""
+    cases = [("st_pos", "C4", 100, "st40"),
+             ("fc_fd_fv_p", "D4", 100, "fc12fd-10FV1P60"),
+             ("velocity", "E4", 150, "")]
+    for name, note, vel, flags in cases:
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = tmp / f"flag_{name}_{dev}.wav"
+            GooferResampler(tmp / "voice.wav", out, note, vel, flags, 100,
+                            700, 120, 0, 100, 0, "!120", "AA", device=dev)
+            outs.append(np.asarray(read_wav(out)[0], np.float32))
+        if outs[0].shape != outs[1].shape or not np.isfinite(outs[0]).all():
+            raise AssertionError(f"note {name}: {outs[0].shape} samples on "
+                                 f"the card, {outs[1].shape} on the CPU")
+        lsd = lsd_db(outs[0], outs[1], SR)
+        print(f"note {name} ({flags or 'no flags'}, velocity {vel}): LSD "
+              f"card vs CPU {lsd:.4f} dB, peak {np.abs(outs[0]).max():.3f}")
+        if not (lsd <= 1.0 and np.abs(outs[0]).max() > 0.01):
+            raise AssertionError(f"note {name}: LSD {lsd} dB card vs CPU, or "
+                                 "silent")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1012,13 +1717,21 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all([pulse_kernel.KERNEL, cascade_kernel.KERNEL])
+    libs = _build.build_all([
+        pulse_kernel.KERNEL, cascade_kernel.KERNEL, viterbi_kernel.KERNEL,
+        lpc_roots_kernel.KERNEL, burg_kernel.KERNEL])
     print(f"build {', '.join(p.name for p in libs)}: "
           f"{time.perf_counter() - t0:.2f} s")
 
     err, p_rows = check_pulse_kernel(_pulse_cases() + phrase_pulse_cases())
     c_err, c_rel, c_rows = check_cascade_kernel(cascade_cases()
                                                 + phrase_cascade_cases())
+    dev = torch.device("cuda")
+    v_err, v_bad, v_rows = check_viterbi_kernel(viterbi_cases(dev))
+    frame_cases = lpc_cases(dev)
+    b_err, lpc_coeffs, b_rows = check_burg_kernel(frame_cases)
+    r_err, r_rows = check_lpc_roots_kernel(frame_cases, lpc_coeffs)
+    del frame_cases, lpc_coeffs
 
     pulse_kernel.pulse_accumulate.launches = 0
     cascade_kernel.one_pole_cascade.launches = 0
@@ -1026,8 +1739,16 @@ def main() -> int:
         warm, per_note = render_slice(Path(tmp))
         launches, c_launches = _launches()
         check_heavy(Path(tmp))
+        check_flag_notes(Path(tmp))
         prof = profile_heavy(Path(tmp))
         phrases = phrase_slice(Path(tmp))
+        analysis = analysis_slice(Path(tmp))
+    v_launches, r_launches, b_launches = analysis.pop("launches")
+    if min(v_launches, r_launches, b_launches) <= 0:
+        raise AssertionError(
+            f"the folder extraction launched the Viterbi kernel "
+            f"{v_launches}, the root kernel {r_launches} and the Burg "
+            f"kernel {b_launches} times")
     ph_launches, ph_c_launches = phrases.pop("launches")
     if ph_launches <= 0 or ph_c_launches <= 0:
         raise AssertionError(f"the phrases launched the pulse kernel "
@@ -1057,6 +1778,90 @@ def main() -> int:
     *_, c_ms, c_p_ms, c_bound, c_bound_by = c_rows["hp12_layer"]
     *_, ms, p_ms, bound, bound_by = p_rows["glide_gap"]
     print(json.dumps({"phrases": phrases}))
+    print(json.dumps({"analysis": analysis}))
+    def per_chunk(n_launches):
+        return {"launches_per_chunk": n_launches / analysis["chunks"],
+                "chunks": analysis["chunks"],
+                "timed_case": "bank_chunk: the 64-file folder's largest "
+                              "chunk"}
+
+    vb, vf, v_steps, v_ms, v_p_ms, v_bound, v_bound_by = v_rows["bank_chunk"]
+    rn, _, r_ms, r_p_ms, r_lib_ms, r_bound, r_bound_by = r_rows["bank_chunk"]
+    bn, bw, b_ms, b_p_ms, b_p_kernels, b_bound, b_bound_by = \
+        b_rows["bank_chunk"]
+    analysis_kernels = [{
+        "name": "pitch_viterbi",
+        "route": "cuda",
+        "source": "goofer_tpu_torch/csrc/pitch_viterbi.cu",
+        "replaces": "goofer_tpu/analysis/pitch.py:180",
+        "note": "replaces non-Pallas JAX code: _viterbi's two associative "
+                "scans of max-plus matrices; here the sequential solve "
+                "with a backtrace, one CTA per file, the transition costs "
+                "computed ahead of the chain",
+        "launches": v_launches,
+        **per_chunk(v_launches),
+        "max_abs_err": v_err,
+        "path_frames_differing": v_bad,
+        "ms": v_ms,
+        "plain_ms": v_p_ms,
+        "bound_ms": v_bound,
+        "bound_by": v_bound_by,
+        "dependent_steps": v_steps,
+        "library_ms": None,
+        "library_note": no_library,
+        "shape": f"B={vb} F={vf} K=6",
+        "ms_by_case": {k: v[3] for k, v in v_rows.items()},
+        "plain_ms_by_case": {k: v[4] for k, v in v_rows.items()},
+        "bound_ms_by_case": {k: v[5] for k, v in v_rows.items()},
+        "folder_device_ms": analysis["viterbi_ms"],
+    }, {
+        "name": "lpc_roots",
+        "route": "cuda",
+        "source": "goofer_tpu_torch/csrc/lpc_roots.cu",
+        "replaces": "goofer_tpu/analysis/formants.py:119",
+        "note": "replaces non-Pallas JAX code: _poly_roots_dk's fori_loop "
+                "of 60 Durand-Kerner iterations; one warp per frame",
+        "launches": r_launches,
+        **per_chunk(r_launches),
+        "max_abs_err": r_err,
+        "ms": r_ms,
+        "plain_ms": r_p_ms,
+        "bound_ms": r_bound,
+        "bound_by": r_bound_by,
+        "library_ms": r_lib_ms,
+        "library_note": "torch.linalg.eigvals of the companion matrices, "
+                        "timed here and used nowhere in the port",
+        "shape": f"rows={rn} order={LPC_ORDER}",
+        "ms_by_case": {k: v[2] for k, v in r_rows.items()},
+        "plain_ms_by_case": {k: v[3] for k, v in r_rows.items()},
+        "library_ms_by_case": {k: v[4] for k, v in r_rows.items()},
+        "bound_ms_by_case": {k: v[5] for k, v in r_rows.items()},
+        "converged_rows_by_case": {k: v[1] for k, v in r_rows.items()},
+        "folder_device_ms": analysis["roots_ms"],
+    }, {
+        "name": "burg_lpc",
+        "route": "cuda",
+        "source": "goofer_tpu_torch/csrc/burg_lpc.cu",
+        "replaces": "goofer_tpu/analysis/formants.py:83",
+        "note": "replaces non-Pallas JAX code: _burg_coeffs' fori_loop "
+                "over the order; one CTA per frame, errors in shared "
+                "memory",
+        "launches": b_launches,
+        **per_chunk(b_launches),
+        "max_abs_err": b_err,
+        "ms": b_ms,
+        "plain_ms": b_p_ms,
+        "plain_device_kernels": b_p_kernels,
+        "bound_ms": b_bound,
+        "bound_by": b_bound_by,
+        "library_ms": None,
+        "library_note": no_library,
+        "shape": f"rows={bn} wlen={bw} order={LPC_ORDER}",
+        "ms_by_case": {k: v[2] for k, v in b_rows.items()},
+        "plain_ms_by_case": {k: v[3] for k, v in b_rows.items()},
+        "bound_ms_by_case": {k: v[5] for k, v in b_rows.items()},
+        "folder_device_ms": analysis["burg_ms"],
+    }]
     print(json.dumps({"kernels": [{
         "name": "pulse_accumulate",
         "route": "cuda",
@@ -1114,7 +1919,7 @@ def main() -> int:
         "phrase_device_ms": {k: v["cascade_ms"] for k, v in phrases.items()},
         "heavy_note_device_ms": prof["cascade_ms"],
         "heavy_note_device_share": prof["cascade_share"],
-    }]}))
+    }] + analysis_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,16 @@
-"""SillySampler-compatible CLI, 13-argument render mode
-(ref: SillySampler.py:1226-1275).
+"""SillySampler-compatible CLI (ref: SillySampler.py:1226-1275).
 
-Port of goofer_tpu/cli.py.  The render runs on CUDA unless
-$GOOFER_TPU_TORCH_DEVICE names another device; without CUDA it fails
-rather than falling back.  The other modes of the JAX CLI (HTTP server,
-voicing-editor batch, folder feature extraction) are not ported yet and
-exit with rc 1.
+Port of goofer_tpu/cli.py.  Two modes:
+
+* 13 arguments: render one note (a source without a ``.goofy`` cache is
+  analysed first and the cache saved beside it);
+* one argument, an existing folder or audio file: extract and cache the
+  features of every audio file under it.
+
+Both run on CUDA unless $GOOFER_TPU_TORCH_DEVICE names another device;
+without CUDA they fail rather than falling back.  The other modes of the
+JAX CLI (HTTP server, voicing-editor batch) are not ported yet and exit
+with rc 1.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ HELP_STRING = (
     "Usage:\n"
     "  python -m goofer_tpu_torch.cli in.wav out.wav pitch velocity flags\n"
     "           offset(ms) length(ms) consonant(ms) cutoff(ms)\n"
-    "           volume(%) modulation(%) !tempo pitch_string\n\n"
+    "           volume(%) modulation(%) !tempo pitch_string\n"
+    "  python -m goofer_tpu_torch.cli <folder or audio file>   "
+    "(extract features)\n\n"
     "Example:\n"
     "  python -m goofer_tpu_torch.cli in.wav out.wav C4 100 g0 0 1000 0 "
     "700 100 0 !120 AA"
@@ -33,9 +40,6 @@ def _unported_mode(argv) -> str | None:
         return "HTTP server mode"
     if all(Path(a).suffix.lower() == ".goofy" for a in argv):
         return "voicing-editor mode"
-    if (len(argv) == 1 and Path(argv[0]).exists()
-            and Path(argv[0]).suffix.lower() != ".goofy"):
-        return "folder feature extraction"
     return None
 
 
@@ -49,6 +53,19 @@ def main(argv=None) -> int:
                   "goofer_tpu.cli", mode)
         return 1
     log.info("Args: %s (count=%d)", argv, len(argv))
+    if len(argv) == 1 and Path(argv[0]).exists():
+        from goofer_tpu_torch.sampler.batch_extract import (
+            extract_features_recursive,
+        )
+
+        log.info("Scanning folder: %s", argv[0])
+        try:
+            extract_features_recursive(Path(argv[0]))
+        except Exception:
+            log.exception("Failed to extract features")
+            return 1
+        log.info("Done extracting features.")
+        return 0
     if len(argv) < 13:
         log.error("Argument parsing failed: expected 13 arguments but got "
                   "%d", len(argv))

@@ -17,10 +17,17 @@ torch.backends.cudnn.allow_tf32 = False
 
 # Compute dtype for all device math (ref: GOOFER.py:8).
 COMPUTE_DTYPE = np.float32
+# Storage dtype for .goofy feature files (ref: GOOFER.py:7).
+STORAGE_DTYPE = np.float16
 
 # Frame parameters used by the resampler CLI (ref: SillySampler.py:14-15).
 SAMPLER_N_FFT = 1024
 SAMPLER_HOP = SAMPLER_N_FFT // 4
+
+# f0 clipping range applied after per-sample interpolation
+# (ref: GOOFER.py:964).
+F0_CLIP_LO = 1e-5
+F0_CLIP_HI = 2000.0
 
 # LF glottal model constants used by the main pulse train
 # (ref: GOOFER.py:1074 call site).

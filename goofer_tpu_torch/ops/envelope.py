@@ -1,9 +1,11 @@
-"""Spectral-envelope decode and envelope-domain transforms.
+"""Spectral-envelope codec and envelope-domain transforms.
 
-Port of the render-path half of goofer_tpu/ops/envelope.py: the mel-knot
-decode (ref: GOOFER.py:149-168; goofer_tpu's dense (n_bins, K) @ (K, T)
-product, here the two-tap lerp each row of that matrix is),
-the global and per-formant frequency warps, the vocal-fry compression,
+Port of goofer_tpu/ops/envelope.py: the mel-knot codec, which compresses
+a (n_bins, T) envelope to K log-amplitude knots on a mel grid with an
+adaptive K search (ref: GOOFER.py:74-168; decode is goofer_tpu's dense
+(n_bins, K) @ (K, T) product, here the two-tap lerp each row of that
+matrix is, in the search's reconstructions too), the global and
+per-formant frequency warps, the vocal-fry compression,
 envelope smoothing / sharpening and frame-count matching.  The
 per-formant warp and the fry compression resample each column with
 ``torch.gather``; goofer_tpu's banded dense-select form of that gather
@@ -19,6 +21,12 @@ import torch
 from goofer_tpu_torch.config import COMPUTE_DTYPE
 from goofer_tpu_torch.ops.filters import gaussian_blur1d
 from goofer_tpu_torch.ops.interp import gather_lerp, linspace, per_row
+
+KNOT_K_START = 32
+KNOT_K_STEP = 16
+KNOT_K_MAX = 192
+KNOT_EPS = 1e-2
+KNOT_K_VALUES = tuple(range(KNOT_K_START, KNOT_K_MAX + 1, KNOT_K_STEP))
 
 
 def hz_to_mel(hz):
@@ -59,18 +67,95 @@ def _decode_taps(sr: int, n_fft: int, k: int):
     return interp_taps(freqs, mel_knot_freqs(sr, n_fft, k))
 
 
+@functools.lru_cache(maxsize=None)
+def _knot_bin_idx(sr: int, n_fft: int, k: int, n_bins: int) -> np.ndarray:
+    """The spectrum bin nearest each of the K knot frequencies."""
+    bin_resolution = sr / n_fft
+    hz_knots = mel_knot_freqs(sr, n_fft, k)
+    return np.clip(np.round(hz_knots / bin_resolution).astype(np.int64),
+                   0, n_bins - 1)
+
+
 def decode_env_from_knots(knot_vals_log: torch.Tensor, sr: int, n_fft: int,
                           n_bins: int) -> torch.Tensor:
-    """exp(W @ knots) in float32, truncated to n_bins rows
-    (ref: GOOFER.py:149-168).  W has two non-zero weights per row, so the
-    product is a lerp of two gathered knot rows: two rounded products and
-    one add per element, the same on every device and BLAS build."""
-    idx, w = _decode_taps(sr, n_fft, knot_vals_log.shape[0])
+    """exp(W @ knots) in float32 for (..., K, T) knots, truncated to
+    n_bins rows (ref: GOOFER.py:149-168).  W has two non-zero weights per
+    row, so the product is a lerp of two gathered knot rows: two rounded
+    products and one add per element, the same on every device and BLAS
+    build."""
+    idx, w = _decode_taps(sr, n_fft, knot_vals_log.shape[-2])
     dev = knot_vals_log.device
     idx = torch.as_tensor(idx[:n_bins], device=dev)
     w = torch.as_tensor(w[:n_bins], device=dev)
     knots = knot_vals_log.float()
-    return torch.exp(w[:, :1] * knots[idx] + w[:, 1:] * knots[idx + 1])
+    return torch.exp(w[:, :1] * knots.index_select(-2, idx)
+                     + w[:, 1:] * knots.index_select(-2, idx + 1))
+
+
+def knot_errors(env: torch.Tensor, sr: int, n_fft: int,
+                smooth_sigma_bins: float = 0.5, check_idx=None):
+    """Reconstruction error of a (..., n_bins, T) envelope for every
+    candidate K, plus the smoothed log-envelope the knots are read from
+    (ref: GOOFER.py:97-123).  Returns (errs (..., len(KNOT_K_VALUES)),
+    log_env, KNOT_K_VALUES).
+
+    The error is taken on at most 256 check columns: evenly spread over
+    the T frames, or, for a (B, n_bins, T) batch whose rows have fewer
+    true frames than T, the (B, C) int64 columns ``check_idx``."""
+    env = env.float()
+    if smooth_sigma_bins > 0:
+        env_s = gaussian_blur1d(env, smooth_sigma_bins, axis=-2)
+    else:
+        env_s = env
+    log_env = torch.log(torch.clamp(env_s, min=1e-8))
+    n_bins, t = env.shape[-2:]
+    if check_idx is None:
+        cols = torch.as_tensor(
+            np.linspace(0, t - 1, min(256, t)).astype(np.int64),
+            device=env.device)
+        env_check = env_s.index_select(-1, cols)
+        log_check = log_env.index_select(-1, cols)
+    else:
+        cols = check_idx[:, None, :].expand(-1, n_bins, -1)
+        env_check = torch.gather(env_s, -1, cols)
+        log_check = torch.gather(log_env, -1, cols)
+
+    errs = []
+    for k in KNOT_K_VALUES:
+        bin_idx = torch.as_tensor(_knot_bin_idx(sr, n_fft, k, n_bins),
+                                  device=env.device)
+        recon = decode_env_from_knots(log_check.index_select(-2, bin_idx),
+                                      sr, n_fft, n_bins)
+        errs.append((torch.abs(recon - env_check)
+                     / (env_check + 1e-8)).amax(dim=(-2, -1)))
+    return torch.stack(errs, dim=-1), log_env, KNOT_K_VALUES
+
+
+def first_k_under(errs, eps: float = KNOT_EPS) -> int:
+    """The first candidate K whose error is under ``eps`` (fallback:
+    K_max)."""
+    for k, e in zip(KNOT_K_VALUES, errs):
+        if e < eps:
+            return int(k)
+    return KNOT_K_VALUES[-1]
+
+
+def compress_env_to_knots(env, sr: int, n_fft: int, eps: float = KNOT_EPS):
+    """Adaptive-K mel-knot compression of one (n_bins, T) envelope,
+    returning the reference's dict layout (ref: GOOFER.py:97-147)."""
+    env = torch.as_tensor(env, dtype=torch.float32)
+    n_bins = env.shape[0]
+    errs, log_env, _ = knot_errors(env, sr, n_fft)
+    chosen = first_k_under(errs.cpu().numpy(), eps)
+    bin_idx = _knot_bin_idx(sr, n_fft, chosen, n_bins)
+    return {
+        "mode": "knots",
+        "knot_vals_log": log_env.cpu().numpy()[bin_idx, :].astype(np.float16),
+        "hz_knots": mel_knot_freqs(sr, n_fft, chosen),
+        "n_bins": int(n_bins),
+        "n_fft": int(n_fft),
+        "sr": int(sr),
+    }
 
 
 def gather_lerp_columns(env: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

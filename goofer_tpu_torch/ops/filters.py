@@ -64,6 +64,25 @@ def gaussian_blur1d(x: torch.Tensor, sigma: float, axis: int = -1,
     return torch.movedim(out.reshape(shape), -1, axis)
 
 
+def fir_decimate(x: torch.Tensor, kernel: np.ndarray,
+                 step: int) -> torch.Tensor:
+    """Every ``step``-th sample of the 'same' convolution of (B, n) rows
+    with a symmetric odd-length FIR ``kernel`` over the edge-padded rows:
+    the anti-aliased decimation of the formant tracker.  Returns
+    (B, ceil(n / step)).
+
+    One strided ``conv1d`` in full float32 (config pins TF32 off), which
+    computes only the kept samples; goofer_tpu filters every sample
+    through a power-of-two FFT (its fft_conv_valid, shaped by XLA-TPU
+    compile times) and slices.  Both sit outside any kernel."""
+    pad = (len(kernel) - 1) // 2
+    padded = torch.cat([x[:, :1].expand(-1, pad), x,
+                        x[:, -1:].expand(-1, pad)], dim=1)
+    w = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
+    # symmetric taps: correlation == convolution
+    return F.conv1d(padded[:, None], w.reshape(1, 1, -1), stride=step)[:, 0]
+
+
 def gaussian_blur_complex_freq(S: torch.Tensor, sigma: float) -> torch.Tensor:
     """Frequency-axis blur of a complex spectrogram, real and imaginary
     parts separately (ref: GOOFER.py:1143 applies its real filter to

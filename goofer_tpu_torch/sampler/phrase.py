@@ -142,7 +142,7 @@ def plan_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
     planned = []
     for i, spec in enumerate(notes):
         if spec.in_file not in feature_cache:
-            feats = acquire_features(Path(spec.in_file), device)
+            feats = acquire_features(Path(spec.in_file), n_fft, hop, device)
             env, f0i, vmask, forms, sr, ylen = feats
             forms_c = formants_to_int_keys(forms)
             rev = (env[:, ::-1], f0i[::-1], vmask[::-1],
@@ -270,8 +270,10 @@ def render_phrase_to_wavs(notes, out_paths, **kw):
     at its source's sample rate."""
     outs = render_phrase(notes, **kw)
     device = config.get_device(kw.get("device"))
+    n_fft = kw.get("n_fft", config.SAMPLER_N_FFT)
+    hop = kw.get("hop", config.SAMPLER_HOP)
     for spec, wave, path in zip(notes, outs, out_paths):
         # memoized by the render's own planning
-        sr = acquire_features(Path(spec.in_file), device)[4]
+        sr = acquire_features(Path(spec.in_file), n_fft, hop, device)[4]
         write_wav(path, wave, sr)
     return outs

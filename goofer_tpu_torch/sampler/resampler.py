@@ -6,8 +6,9 @@ sanitization, the pitch curve and the pulse bounds (small NumPy work, the
 same code as goofer_tpu); the render itself (sampler/render_core.py)
 runs as PyTorch on the chosen device.
 
-Scope: features come from an existing ``.goofy`` only (analysis is not
-ported); every flag of the 13-argument CLI renders.
+Features come from the source's ``.goofy`` cache, which the first render
+of a source extracts and saves (analysis/features.py); every flag of the
+13-argument CLI renders.
 """
 from __future__ import annotations
 
@@ -199,23 +200,30 @@ _decoded_lock = threading.Lock()
 _decoded_cache: dict = {}
 
 
-def acquire_features(in_file: Path, device: torch.device):
-    """Load the source's cached ``.goofy`` (ref: SillySampler.py:415-432)
-    and decode a knot-mode envelope on ``device``.  Returns (env, f0,
-    voicing mask, formants, sr, y_len) as host arrays.
+def acquire_features(in_file: Path, n_fft: int, hop: int,
+                     device: torch.device):
+    """Load the source's cached ``.goofy`` or extract and save it
+    (ref: SillySampler.py:415-432); a knot-mode envelope is decoded, and a
+    missing cache extracted, on ``device``.  Returns (env, f0, voicing
+    mask, formants, sr, y_len) as host arrays.
 
-    Decoded features are memoized on (path, mtime): repeated phrase plans
-    against one source skip the parse and the decode and get the SAME
-    tuple, which the phrase planner's memo keys on.
-
-    A missing ``.goofy`` raises: feature extraction is not ported yet
-    (``python -m goofer_tpu.cli <folder>`` writes the caches)."""
-    feat = _feature_path(Path(in_file))
+    Decoded features are memoized on (path, mtime, n_fft, hop): repeated
+    phrase plans against one source skip the parse and the decode and get
+    the SAME tuple, which the phrase planner's memo keys on."""
+    in_file = Path(in_file)
+    feat = _feature_path(in_file)
     if not feat.exists():
-        raise FileNotFoundError(
-            f"{feat} not found: goofer_tpu_torch renders from cached "
-            f"features only (analysis is not ported yet)")
-    ck = (str(feat), feat.stat().st_mtime_ns)
+        from goofer_tpu_torch.analysis.features import extract_features
+        from goofer_tpu_torch.io.goofy import save_features
+        from goofer_tpu_torch.utils.audio_io import read_wav_mono
+
+        log.info("Extracting features")
+        y, sr = read_wav_mono(in_file)
+        env, f0i, vmask, forms, knots = extract_features(
+            y, sr, n_fft=n_fft, hop_length=hop, device=device)
+        save_features(feat, knots, f0i, vmask, forms, sr, len(y))
+        return np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, len(y)
+    ck = (str(feat), feat.stat().st_mtime_ns, n_fft, hop)
     with _decoded_lock:
         hit = _decoded_cache.get(ck)
     if hit is not None:
@@ -263,7 +271,7 @@ class GooferResampler:
     def render(self) -> None:
         p = self.params
         env, f0i, vmask, forms, sr, ylen = acquire_features(
-            self.in_file, self.device)
+            self.in_file, self.n_fft, self.hop, self.device)
         forms = formants_to_int_keys(forms)
         if p.reverse:
             log.info("Reversing features (R flag)")

@@ -7,8 +7,14 @@ handles PCM and float WAV only, with libsndfile's float conventions
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 from scipy.io import wavfile
+
+# what read_wav decodes; goofer_tpu also reads flac, aiff and mp3 through
+# its native codecs
+AUDIO_EXTS = [".wav"]
 
 
 def read_wav(path) -> tuple[np.ndarray, int]:
@@ -39,3 +45,7 @@ def write_wav(path, data: np.ndarray, sr: int) -> None:
                       32767.0 / 32768.0)
     pcm = np.round(clipped * 32768.0).astype(np.int16)
     wavfile.write(str(path), int(sr), pcm)
+
+
+def is_audio_file(path) -> bool:
+    return Path(path).suffix.lower() in AUDIO_EXTS

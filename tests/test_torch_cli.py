@@ -1,5 +1,6 @@
 """The port's 13-argument CLI render on the CPU (its plain versions),
-from the vendored golden .goofy caches."""
+from the vendored golden .goofy caches; tests/test_torch_extract.py holds
+the folder mode and the render of a source without a cache."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -58,10 +59,23 @@ def test_cli_render_reversed_with_velocity(src):
 def test_cli_unported_modes_and_errors(src, tmp_path):
     assert cli.main([]) == 1                                  # server
     assert cli.main([str(tmp_path / "a.goofy")]) == 1        # editor
-    assert cli.main([str(tmp_path)]) == 1                    # folder
     assert cli.main([str(src), "out.wav", "C4"]) == 1         # too few
-    missing = tmp_path / "other.wav"
-    shutil.copy(src, missing)
-    argv = [str(missing), str(tmp_path / "o.wav")] + ARGS["neutral"]
-    assert cli.main(argv) == 1                                # no .goofy
-    assert not (tmp_path / "o.wav").exists()
+    assert cli.main([str(tmp_path / "nowhere")]) == 1         # no such path
+    # the folder mode is ported: src.wav has its cache, nothing to do
+    assert cli.main([str(tmp_path)]) == 0
+    assert sorted(p.name for p in tmp_path.glob("*.goofy")) == [
+        "src_features.goofy"]
+    # a source without a .goofy is analysed, and its cache saved
+    fresh = tmp_path / "other.wav"
+    shutil.copy(src, fresh)
+    argv = [str(fresh), str(tmp_path / "o.wav")] + ARGS["neutral"]
+    assert cli.main(argv) == 0
+    assert (tmp_path / "o.wav").exists()
+    assert (tmp_path / "other_features.goofy").exists()
+    # a source that cannot be read still fails, and writes nothing
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes(b"RIFFnope")
+    argv = [str(bad), str(tmp_path / "b.wav")] + ARGS["neutral"]
+    assert cli.main(argv) == 1
+    assert not (tmp_path / "b.wav").exists()
+    assert not (tmp_path / "bad_features.goofy").exists()

@@ -12,7 +12,11 @@ transcendental rounding; the onsets themselves must agree, so every case
 keeps its float64 phase more than 1e-9 from an integer (the kernel sums it
 in another association order than torch.cumsum).  Cascade tolerance
 1e-4 x max|x|: two float32 scans of the same recurrences in other
-association orders."""
+association orders.  The pitch Viterbi kernel must equal its plain
+version exactly (both run the same float32 operations in the same order);
+the root finder's matched roots agree to 1e-4 on rows that converged, and
+the Burg coefficients to rtol 1e-3 / atol 1e-4 (another order of the
+551-term sums)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,19 +24,34 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
+    BURG_ATOL,
+    BURG_RTOL,
     CASCADE_TOL,
     PULSE_TOL,
+    ROOTS_TOL,
+    _f16_track_equal,
+    _formants_close,
     cascade_cases,
     exact_phase_plain,
     f0_with_onsets,
     kernel_edges,
+    knot_steps,
+    known_root_polys,
+    matched_root_error,
+    pcm16,
     phase_margin,
     phrase_cascade_cases,
     phrase_pulse_cases,
     pulse_pass_args,
+    seeded_candidates,
+    voicebank_cuts,
 )
+from goofer_tpu_torch.analysis import features, formants, pitch  # noqa: E402
 from goofer_tpu_torch.ops import pulse, scan_iir  # noqa: E402
 from goofer_tpu_torch.ops.cuda import cascade_kernel, pulse_kernel  # noqa: E402
+from goofer_tpu_torch.ops.cuda.burg_kernel import burg_lpc  # noqa: E402
+from goofer_tpu_torch.ops.cuda.lpc_roots_kernel import lpc_roots  # noqa: E402
+from goofer_tpu_torch.ops.cuda.viterbi_kernel import pitch_viterbi  # noqa: E402
 from goofer_tpu_torch.ops.cuda.cascade_kernel import one_pole_cascade  # noqa: E402
 from goofer_tpu_torch.ops.cuda.pulse_kernel import pulse_accumulate  # noqa: E402
 from goofer_tpu_torch.sampler import phrase, render_core  # noqa: E402
@@ -417,3 +436,115 @@ def test_phrase_row_equals_note_alone_on_card(dev, tmp_path):
         d = np.abs(out - alone) / (np.abs(alone).max() + 1e-12)
         assert float((d > 5e-3).mean()) <= 1e-3, float(d.max())
         assert lsd_db(out, alone, SR) < 0.1
+
+
+# ------------------------------------------------------- analysis kernels
+
+@pytest.mark.parametrize("frames", [1, 2, 33, 338, 2049, 10300])
+@pytest.mark.parametrize("batch", [1, 2, 16, 64])
+def test_viterbi_kernel_equals_plain(dev, batch, frames):
+    """Ragged frame counts (row 0 full, row 1 a single frame); 10300
+    frames overflow the kernel's shared backpointers into its global
+    scratch."""
+    args = [torch.as_tensor(a, device=dev) for a in
+            seeded_candidates(batch, frames, 100 * batch + frames)]
+    costs = pitch.transition_costs(pitch.PitchConfig(), 256 / SR)
+    before = pitch_viterbi.launches
+    f0, path = pitch_viterbi(*args, *costs)
+    want_f0, want_path = pitch.viterbi_plain(*args, *costs)
+    torch.cuda.synchronize()
+    assert pitch_viterbi.launches == before + 1
+    assert torch.equal(path.long(), want_path)
+    assert torch.equal(f0, want_f0)
+    nf = args[3].long()
+    past = torch.arange(frames, device=dev)[None] >= nf[:, None]
+    assert (f0[past] == 0).all() and (path[past] == -1).all()
+
+
+@pytest.mark.parametrize("k", [1, 4, 12, 31])
+def test_viterbi_wrapper_rejects_other_state_counts(dev, k):
+    """The kernel is unrolled for the tracker's 6 candidates: any other
+    count raises on the card and launches nothing."""
+    args = [torch.zeros((2, 5, k), device=dev),
+            torch.zeros((2, 5, k), device=dev),
+            torch.zeros((2, 5), device=dev),
+            torch.full((2,), 5, dtype=torch.int32, device=dev)]
+    before = pitch_viterbi.launches
+    with pytest.raises(ValueError, match="candidates"):
+        pitch_viterbi(*args, 0.1, 0.2)
+    assert pitch_viterbi.launches == before
+
+
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 5000])
+def test_lpc_roots_kernel_matches_plain(dev, rows):
+    coeffs, known = known_root_polys(rows, rows)
+    a = torch.as_tensor(coeffs, device=dev)
+    before = lpc_roots.launches
+    got = lpc_roots(a)
+    want = formants.poly_roots_dk_plain(a)
+    torch.cuda.synchronize()
+    assert lpc_roots.launches == before + 1
+    assert got.shape == (rows, 10) and got.dtype == torch.complex64
+    conv = formants.converged_roots(a, want).all(dim=1)
+    assert conv.float().mean() > 0.99
+    assert float(matched_root_error(got[conv], want[conv]).max()) <= ROOTS_TOL
+    truth = torch.as_tensor(known, device=dev).to(torch.complex64)
+    assert float(matched_root_error(got[conv], truth[conv]).max()) <= 1e-3
+
+
+def test_lpc_roots_kernel_zero_frame(dev):
+    """An all-zero frame's polynomial z^10: no NaN that the plain version
+    does not have."""
+    a = torch.zeros((3, 11), device=dev)
+    a[:, 0] = 1.0
+    a[1, 1:] = torch.as_tensor(known_root_polys(1, 0)[0][0, 1:], device=dev)
+    got = torch.view_as_real(lpc_roots(a))
+    want = torch.view_as_real(formants.poly_roots_dk_plain(a))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, atol=ROOTS_TOL, rtol=0.0)
+
+
+@pytest.mark.parametrize("rows,wlen,order", [(1, 551, 10), (33, 551, 10),
+                                             (5000, 551, 10), (7, 600, 12),
+                                             (5, 32, 10), (3, 4010, 8)])
+def test_burg_kernel_matches_plain(dev, rows, wlen, order):
+    """Noise frames with a resonance, Gaussian-windowed; one silent."""
+    rng = np.random.default_rng(rows + wlen)
+    x = rng.standard_normal((rows, wlen + 2))
+    x = x[:, 2:] + 1.6 * x[:, 1:-1] - 0.9 * x[:, :-2]
+    t = np.linspace(-1, 1, wlen)
+    frames = (x * np.exp(-12 * t * t)).astype(np.float32)
+    frames[rows // 2] = 0.0 if rows > 2 else frames[rows // 2]
+    frames = torch.as_tensor(frames, device=dev)
+    before = burg_lpc.launches
+    got = burg_lpc(frames, order)
+    want = formants.burg_coeffs_plain(frames, order)
+    torch.cuda.synchronize()
+    assert burg_lpc.launches == before + 1
+    assert got.shape == (rows, order + 1) and (got[:, 0] == 1).all()
+    torch.testing.assert_close(got, want, rtol=BURG_RTOL, atol=BURG_ATOL)
+
+
+def test_burg_wrapper_rejects_long_frames(dev):
+    with pytest.raises(ValueError, match="wlen"):
+        burg_lpc(torch.zeros((2, 4011), device=dev), 10)
+
+
+def test_batch_of_64_files_equals_each_alone(dev):
+    """The 64-file bank as one extract_features_batch call against every
+    file alone: f0 and mask at float16, the same K, knots to one float16
+    step, formants within 1 Hz on >= 99% of entries."""
+    cuts = [pcm16(y) for y in voicebank_cuts()]
+    before = pitch_viterbi.launches
+    batch = features.extract_features_batch(cuts, SR, dense=False, device=dev)
+    chunks = pitch_viterbi.launches - before
+    assert 1 <= chunks < 16
+    for i, (y, row) in enumerate(zip(cuts, batch)):
+        alone = features.extract_features(y, SR, dense=False, device=dev)
+        assert row[0] is None and alone[0] is None
+        _f16_track_equal(f"file {i} f0", row[1], alone[1])
+        _f16_track_equal(f"file {i} mask", row[2], alone[2])
+        k_b, k_a = row[4]["knot_vals_log"], alone[4]["knot_vals_log"]
+        assert k_b.shape == k_a.shape, i
+        assert knot_steps(k_a, k_b) <= 1.001, i
+        _formants_close(f"file {i}", row[3], alone[3])

@@ -24,6 +24,15 @@ def test_port_imports_no_jax():
         "import goofer_tpu_torch.ops.pulse, goofer_tpu_torch.engine.synth\n"
         "import goofer_tpu_torch.ops.scan_iir, goofer_tpu_torch.ops.noise\n"
         "import goofer_tpu_torch.sampler.phrase\n"
+        "import goofer_tpu_torch.analysis.pitch\n"
+        "import goofer_tpu_torch.analysis.formants\n"
+        "import goofer_tpu_torch.analysis.features\n"
+        "import goofer_tpu_torch.sampler.batch_extract\n"
+        "import goofer_tpu_torch.io.goofy, goofer_tpu_torch.utils.audio_io\n"
+        "import goofer_tpu_torch.ops.cuda.viterbi_kernel\n"
+        "import goofer_tpu_torch.ops.cuda.lpc_roots_kernel\n"
+        "import goofer_tpu_torch.ops.cuda.burg_kernel\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'goofer_tpu'))\n"
         "assert not bad, bad\n"
