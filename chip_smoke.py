@@ -60,12 +60,14 @@ Phases (any failure raises and the script exits nonzero):
    from 1 to F), of the folder's largest chunk, and on seeded ones at
    B=64, F=700, all unvoiced, F=10300 (backpointers in the global scratch)
    and K=4; printed with its count of dependent steps;
-11. the Burg kernel on the windowed frames of the same recordings (an
-   all-zero frame among them), rtol 1e-3 / atol 1e-4, with the plain
-   version's time and device kernels;
-12. the root-finder kernel on those frames' polynomials and on 64 x 700
-   seeded ones with known roots: matched roots within 1e-4 on rows that
-   converged, the same NaN pattern, known roots found; timed beside
+11. the Burg kernel (one warp per frame, each lane's stretch of the
+   errors in registers, no CTA barrier) on the windowed frames of the
+   same recordings (an all-zero frame among them), rtol 1e-3 / atol 1e-4,
+   with the plain version's time and device kernels;
+12. the root-finder kernel (floor(32 / order) polynomials per warp, 3 at
+   order 10, a root per lane) on those frames' polynomials and on 64 x
+   700 seeded ones with known roots: matched roots within 1e-4 on rows
+   that converged, the same NaN pattern, known roots found; timed beside
    torch.linalg.eigvals of the companion matrices (a yardstick only);
 13. one note each with positive st, with fc fd FV P and with velocity 150
    on the card, held to the port's CPU render within 1 dB LSD (after the
@@ -1254,16 +1256,18 @@ def check_viterbi_kernel(cases):
 
 def known_root_polys(rows: int, seed: int, order: int = 10):
     """(coeffs (rows, order + 1) float32 monic, roots (rows, order)
-    complex128): real polynomials with order / 2 conjugate root pairs
+    complex128): real polynomials with order // 2 conjugate root pairs
     inside the unit circle, like stable LPC polynomials, their angles kept
-    apart so that float32 coefficients still pin the roots."""
+    apart so that float32 coefficients still pin the roots, and one real
+    root in (-0.9, 0.9) at an odd order."""
     rng = np.random.default_rng(seed)
     half_n = order // 2
     r = rng.uniform(0.6, 0.98, (rows, half_n))
     th = (np.arange(half_n) + 0.5
-          + rng.uniform(-0.3, 0.3, (rows, half_n))) * np.pi / half_n
+          + rng.uniform(-0.3, 0.3, (rows, half_n))) * np.pi / max(half_n, 1)
     half = r * np.exp(1j * th)
-    roots = np.concatenate([half, half.conj()], axis=1)
+    real = rng.uniform(-0.9, 0.9, (rows, order % 2))
+    roots = np.concatenate([half, half.conj(), real], axis=1)
     coeffs = np.ones((rows, 1), np.complex128)
     for j in range(order):
         coeffs = (np.concatenate([coeffs, np.zeros((rows, 1))], axis=1)
@@ -1820,7 +1824,8 @@ def main() -> int:
         "source": "goofer_tpu_torch/csrc/lpc_roots.cu",
         "replaces": "goofer_tpu/analysis/formants.py:119",
         "note": "replaces non-Pallas JAX code: _poly_roots_dk's fori_loop "
-                "of 60 Durand-Kerner iterations; one warp per frame",
+                "of 60 Durand-Kerner iterations; floor(32 / order) "
+                "frames per warp, a root per lane",
         "launches": r_launches,
         **per_chunk(r_launches),
         "max_abs_err": r_err,
@@ -1844,8 +1849,9 @@ def main() -> int:
         "source": "goofer_tpu_torch/csrc/burg_lpc.cu",
         "replaces": "goofer_tpu/analysis/formants.py:83",
         "note": "replaces non-Pallas JAX code: _burg_coeffs' fori_loop "
-                "over the order; one CTA per frame, errors in shared "
-                "memory",
+                "over the order; one warp per frame, each lane's "
+                "stretch of the errors in registers (shared memory past "
+                "1152 samples)",
         "launches": b_launches,
         **per_chunk(b_launches),
         "max_abs_err": b_err,

@@ -1,11 +1,11 @@
 """Wrapper of the Hopper Burg-LPC kernel.
 
 ``csrc/burg_lpc.cu`` runs the whole Burg recursion of a batch of windowed
-frames in one launch, one CTA per frame with the forward and backward
-errors in shared memory (it replaces
-goofer_tpu/analysis/formants.py:_burg_coeffs, non-Pallas JAX code), and is
-built at first use by ops/cuda/_build.py.  ``MAX_WLEN`` follows from the
-source's three shared float arrays of a frame within 47 KB.
+frames in one launch, one warp per frame with the forward and backward
+errors in registers, or in the warp's slice of shared memory past 1152
+samples (it replaces goofer_tpu/analysis/formants.py:_burg_coeffs,
+non-Pallas JAX code), and is built at first use by ops/cuda/_build.py.
+``MAX_WLEN`` mirrors the source's ``kMaxWlen``.
 
 ``burg_lpc`` takes the plain PyTorch version
 (analysis/formants.py:burg_coeffs_plain) only for CPU tensors.  For CUDA
@@ -21,7 +21,7 @@ import torch
 from goofer_tpu_torch.ops.cuda._build import Kernel
 
 MAX_ORDER = 32
-MAX_WLEN = 47 * 1024 // (3 * 4)
+MAX_WLEN = 4010
 
 KERNEL = Kernel(
     "burg_lpc", "goofer_burg_lpc",

@@ -1,9 +1,9 @@
 """Wrapper of the Hopper LPC root-finder kernel.
 
 ``csrc/lpc_roots.cu`` runs every Durand-Kerner iteration of a batch of
-monic polynomials in one launch, one warp per row and one root per lane
-(it replaces goofer_tpu/analysis/formants.py:_poly_roots_dk, non-Pallas
-JAX code), and is built at first use by ops/cuda/_build.py.
+monic polynomials in one launch, floor(32 / order) rows per warp and one
+root per lane (it replaces goofer_tpu/analysis/formants.py:_poly_roots_dk,
+non-Pallas JAX code), and is built at first use by ops/cuda/_build.py.
 
 ``lpc_roots`` takes the plain PyTorch version
 (analysis/formants.py:poly_roots_dk_plain) only for CPU tensors.  For CUDA
@@ -39,7 +39,7 @@ def _check_inputs(coeffs: torch.Tensor) -> None:
     if coeffs.ndim != 2 or not 2 <= coeffs.shape[1] <= MAX_ORDER + 1:
         raise ValueError("lpc_roots: coeffs must be (rows, order + 1) with "
                          f"order 1 to {MAX_ORDER}, got {tuple(coeffs.shape)}")
-    if coeffs.shape[0] > 2**31 - 8:
+    if coeffs.shape[0] > 2**31 - 256:
         raise ValueError(f"lpc_roots: {coeffs.shape[0]} rows overflow the "
                          "kernel's int indices")
 

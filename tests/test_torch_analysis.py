@@ -350,12 +350,13 @@ def ref_frames(ref_wave):
     return frames[0]
 
 
-def test_burg_coeffs_vs_jax_and_float64(ref_frames):
-    got = formants.burg_coeffs_plain(ref_frames, 10).numpy()
+@pytest.mark.parametrize("order", [8, 10, 12])
+def test_burg_coeffs_vs_jax_and_float64(ref_frames, order):
+    got = formants.burg_coeffs_plain(ref_frames, order).numpy()
     want = np.asarray(j_formants._burg_coeffs(
-        jnp.asarray(ref_frames.numpy()), 10, ref_frames.shape[1]))
+        jnp.asarray(ref_frames.numpy()), order, ref_frames.shape[1]))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
-    exact = _burg_f64(ref_frames.numpy(), 10)
+    exact = _burg_f64(ref_frames.numpy(), order)
     np.testing.assert_allclose(got, exact, rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(want, exact, rtol=1e-3, atol=1e-4)
     assert (got[:, 0] == 1).all()
@@ -382,14 +383,128 @@ def test_durand_kerner_known_roots():
     np.testing.assert_allclose(roots.numpy(), want, atol=1e-5)
 
 
-def test_durand_kerner_real_frames_match_jax(ref_frames):
-    a = formants.burg_coeffs_plain(ref_frames, 10)
+@pytest.mark.parametrize("order", [8, 10, 12])
+def test_durand_kerner_real_frames_match_jax(ref_frames, order):
+    a = formants.burg_coeffs_plain(ref_frames, order)
     got = formants.poly_roots_dk_plain(a)
-    want = np.asarray(j_formants._poly_roots_dk(jnp.asarray(a.numpy()), 10))
+    want = np.asarray(j_formants._poly_roots_dk(jnp.asarray(a.numpy()),
+                                                order))
     conv = formants.converged_roots(a, got).all(dim=1).numpy()
     assert conv.mean() > 0.9
     # root k starts from the same point in both and is iterated alike
     assert np.abs(got.numpy() - want)[conv].max() <= 1e-4
+
+
+# ------------------------------------------------- the kernels' layouts
+# The two LPC kernels' decompositions, restated on the CPU with the
+# lanes as a tensor axis: what their index arithmetic does is held to the
+# plain versions here, where the CUDA sources cannot run.
+
+def _roots_warp_model(coeffs, iters=60):
+    """csrc/lpc_roots.cu's lanes: floor(32 / order) rows per warp, lane
+    r * order + k iterating root k of the warp's row r against roots
+    read from lanes r * order + j (mod 32, as a shuffle reads); lanes
+    past the warp's rows iterate row 0's copy and store nothing."""
+    rows, order = coeffs.shape[0], coeffs.shape[1] - 1
+    per_warp = 32 // order
+    first = torch.arange(-(-rows // per_warp)) * per_warp
+    lane = torch.arange(32)
+    r, k = lane // order, lane % order
+    row = first[:, None] + r[None]
+    live = (r[None] < per_warp) & (row < rows)
+    c = coeffs[torch.where(live, row, first[:, None])].to(torch.complex64)
+    z0 = 0.9 * np.exp(2j * np.pi * (k.numpy() + 0.25) / order)
+    z = torch.as_tensor(z0.astype(np.complex64)).expand(len(first), 32)
+    tiny = torch.tensor(1e-20, dtype=torch.complex64)
+    for _ in range(iters):
+        p = torch.zeros_like(z) + c[..., 0]
+        for i in range(1, order + 1):
+            p = p * z + c[..., i]
+        d = None
+        for j in range(order):
+            fac = z - z[:, (r * order + j) % 32] + (k == j)
+            d = fac if d is None else d * fac
+        z = z - p / torch.where(d.abs() < 1e-20, tiny, d)
+    out = torch.full((rows, order), complex("nan"), dtype=torch.complex64)
+    out[row[live], k.expand_as(live)[live]] = z[live]
+    return out
+
+
+@pytest.mark.parametrize("order,rows", [(10, 7), (10, 3), (11, 5), (16, 3),
+                                        (17, 2), (32, 2), (1, 40), (3, 23)])
+def test_roots_warp_layout_model(order, rows):
+    """Rows packed per warp equal the plain version's; a NaN row and an
+    all-zero polynomial (z^order) among them stay in their own lanes."""
+    rng = np.random.default_rng(order * 100 + rows)
+    coeffs = np.ones((rows, order + 1), np.float32)
+    coeffs[:, 1:] = rng.uniform(-0.5, 0.5, (rows, order)) / order
+    coeffs[rows // 2, 1:] = 0.0
+    coeffs[rows - 1, 1] = np.nan
+    a = _t(coeffs)
+    got = torch.view_as_real(_roots_warp_model(a))
+    want = torch.view_as_real(formants.poly_roots_dk_plain(a))
+    assert torch.isnan(want[rows - 1]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5,
+                               equal_nan=True)
+
+
+def _burg_stretch(wlen):
+    """csrc/burg_lpc.cu's samples per lane: the shortest even stretch up
+    to 36 (registers), else ceil(wlen / 32) (shared memory)."""
+    need = -(-wlen // 32)
+    return need + need % 2 if need <= 36 else need
+
+
+def _burg_warp_model(frames, order):
+    """csrc/burg_lpc.cu's warp per frame: the frame right-aligned in 32
+    lanes' stretches, per-lane sums of the live samples, an xor
+    butterfly, the unmasked update in place, a[i] += k a[m - i] by lane
+    with a[32] = 0 at lane 0, m = 32, and the last k as a[32]."""
+    rows, wlen = frames.shape
+    length = _burg_stretch(wlen)
+    pad = 32 * length - wlen
+    f = torch.nn.functional.pad(frames, (pad, 0)).reshape(rows, 32, length)
+    b = f.clone()
+    lane = torch.arange(32)
+    first = lane * length - pad
+    a = (lane == 0).float().expand(rows, 32).clone()
+    k = torch.zeros(rows, 1)
+    for m in range(1, order + 1):
+        b_in = torch.cat([b[:, :1, -1], b[:, :-1, -1]], dim=1)
+        b_prev = torch.cat([b_in[..., None], b[..., :-1]], dim=2)
+        live = (torch.arange(length)[None] >= (m - first)[:, None]).float()
+        num = (f * b_prev * live).sum(dim=2)
+        den = ((f * f + b_prev * b_prev) * live).sum(dim=2)
+        for off in (16, 8, 4, 2, 1):
+            num, den = num + num[:, lane ^ off], den + den[:, lane ^ off]
+        k = -2.0 * num[:, :1] / torch.clamp(den[:, :1], min=1e-20)
+        f, b = f + k[..., None] * b_prev, b_prev + k[..., None] * f
+        src = m - lane
+        partner = a[:, src % 32]
+        a = torch.where((src >= 0) & (src < 32), a + k * partner, a)
+    return torch.cat([a, k], dim=1)[:, :order + 1]
+
+
+@pytest.mark.parametrize("wlen,order", [(551, 10), (32, 32), (5, 10),
+                                        (1, 3), (600, 12), (1152, 10),
+                                        (1153, 10), (4010, 8), (100, 32)])
+def test_burg_warp_layout_model(wlen, order):
+    """The warp-per-frame decomposition against the plain version (rtol
+    1e-3 / atol 1e-4: other orders of the sums), at stretches on both
+    sides of the register / shared-memory boundary, with wlen < order, at
+    order 32 (the 33rd coefficient) and with a silent frame."""
+    rng = np.random.default_rng(wlen + order)
+    x = rng.standard_normal((4, wlen + 2))
+    x = x[:, 2:] + 1.6 * x[:, 1:-1] - 0.9 * x[:, :-2]
+    t = np.linspace(-1, 1, wlen)
+    frames = _t((x * np.exp(-12 * t * t)).astype(np.float32))
+    frames[2] = 0.0
+    got = _burg_warp_model(frames, order)
+    want = formants.burg_coeffs_plain(frames, order)
+    assert (got[:, 0] == 1).all()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    assert _burg_stretch(wlen) <= 36 or wlen > 1152
 
 
 @pytest.mark.parametrize("source", ["vowel", "ref"])

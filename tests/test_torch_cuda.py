@@ -475,16 +475,29 @@ def test_viterbi_wrapper_rejects_other_state_counts(dev, k):
     assert pitch_viterbi.launches == before
 
 
-@pytest.mark.parametrize("rows", [1, 31, 32, 33, 5000])
-def test_lpc_roots_kernel_matches_plain(dev, rows):
-    coeffs, known = known_root_polys(rows, rows)
+def _roots_row_counts():
+    """(order, rows): 1 row, a warp's rows +- 1, a CTA's rows +- 1 (the
+    kernel packs floor(32 / order) rows per warp, 4 warps per CTA) and
+    5000, at orders on each side of a packing change."""
+    cases = []
+    for order in (1, 3, 8, 10, 11, 16, 17, 32):
+        per_warp = 32 // order
+        counts = {1, per_warp - 1, per_warp + 1, 4 * per_warp - 1,
+                  4 * per_warp + 1, 5000}
+        cases += [(order, n) for n in sorted(counts) if n >= 1]
+    return cases
+
+
+@pytest.mark.parametrize("order,rows", _roots_row_counts())
+def test_lpc_roots_kernel_matches_plain(dev, order, rows):
+    coeffs, known = known_root_polys(rows, rows, order)
     a = torch.as_tensor(coeffs, device=dev)
     before = lpc_roots.launches
     got = lpc_roots(a)
     want = formants.poly_roots_dk_plain(a)
     torch.cuda.synchronize()
     assert lpc_roots.launches == before + 1
-    assert got.shape == (rows, 10) and got.dtype == torch.complex64
+    assert got.shape == (rows, order) and got.dtype == torch.complex64
     conv = formants.converged_roots(a, want).all(dim=1)
     assert conv.float().mean() > 0.99
     assert float(matched_root_error(got[conv], want[conv]).max()) <= ROOTS_TOL
@@ -504,18 +517,43 @@ def test_lpc_roots_kernel_zero_frame(dev):
     torch.testing.assert_close(got, want, atol=ROOTS_TOL, rtol=0.0)
 
 
-@pytest.mark.parametrize("rows,wlen,order", [(1, 551, 10), (33, 551, 10),
-                                             (5000, 551, 10), (7, 600, 12),
-                                             (5, 32, 10), (3, 4010, 8)])
-def test_burg_kernel_matches_plain(dev, rows, wlen, order):
+@pytest.mark.parametrize("order", [3, 10, 16, 32])
+def test_lpc_roots_kernel_rows_equal_alone(dev, order):
+    """Zero polynomials (z^order) and a NaN row packed between ordinary
+    rows over three warps' worth: every row equals itself launched
+    alone, bit for bit."""
+    rows = 3 * (32 // order) + 1
+    a = torch.as_tensor(known_root_polys(rows, order, order)[0], device=dev)
+    a[1::3, 1:] = 0.0
+    a[rows // 2, 2] = float("nan")
+    together = torch.view_as_real(lpc_roots(a))
+    for i in range(rows):
+        alone = torch.view_as_real(lpc_roots(a[i:i + 1].contiguous()))
+        torch.testing.assert_close(together[i:i + 1], alone, rtol=0.0,
+                                   atol=0.0, equal_nan=True)
+
+
+def _burg_frames(rows, wlen, seed):
     """Noise frames with a resonance, Gaussian-windowed; one silent."""
-    rng = np.random.default_rng(rows + wlen)
+    rng = np.random.default_rng(seed)
     x = rng.standard_normal((rows, wlen + 2))
     x = x[:, 2:] + 1.6 * x[:, 1:-1] - 0.9 * x[:, :-2]
     t = np.linspace(-1, 1, wlen)
     frames = (x * np.exp(-12 * t * t)).astype(np.float32)
     frames[rows // 2] = 0.0 if rows > 2 else frames[rows // 2]
-    frames = torch.as_tensor(frames, device=dev)
+    return frames
+
+
+# wlen 1152 is the last frame held in registers (36 samples a lane), 1153
+# the first in shared memory; 4 frames per CTA there, 1 at 4010
+@pytest.mark.parametrize("rows,wlen,order", [
+    (1, 551, 10), (33, 551, 10), (5000, 551, 10), (7, 600, 12),
+    (5, 32, 10), (3, 4010, 8), (6, 32, 32), (9, 1152, 10), (9, 1153, 10),
+    (5, 4010, 32), (7, 5, 10), (3, 1, 2), (1, 1, 32), (5, 100, 32),
+    (2, 2049, 12)])
+def test_burg_kernel_matches_plain(dev, rows, wlen, order):
+    frames = torch.as_tensor(_burg_frames(rows, wlen, rows + wlen),
+                             device=dev)
     before = burg_lpc.launches
     got = burg_lpc(frames, order)
     want = formants.burg_coeffs_plain(frames, order)
@@ -523,6 +561,17 @@ def test_burg_kernel_matches_plain(dev, rows, wlen, order):
     assert burg_lpc.launches == before + 1
     assert got.shape == (rows, order + 1) and (got[:, 0] == 1).all()
     torch.testing.assert_close(got, want, rtol=BURG_RTOL, atol=BURG_ATOL)
+
+
+@pytest.mark.parametrize("wlen", [32, 551, 1152, 1153, 4010])
+def test_burg_kernel_rows_equal_alone(dev, wlen):
+    """Six frames, so the last CTA is not full: each frame's coefficients
+    equal its own launch's, bit for bit."""
+    frames = torch.as_tensor(_burg_frames(6, wlen, wlen), device=dev)
+    together = burg_lpc(frames, 10)
+    for i in range(6):
+        assert torch.equal(together[i:i + 1],
+                           burg_lpc(frames[i:i + 1].contiguous(), 10))
 
 
 def test_burg_wrapper_rejects_long_frames(dev):
