@@ -84,8 +84,31 @@ Phases (any failure raises and the script exits nonzero):
    extracts and saves) within their LSD budgets, and print the warm
    extraction time with and without reads and writes, device busy, idle
    share, device kernels and each analysis kernel's device ms per folder;
-15. print the phrases, analysis and kernels summaries as one JSON line
-   each, then the device line.
+15. the server (sampler/server.py) in-process on 127.0.0.1 at an
+   ephemeral port: warm-up (kernel builds, one note, one burst), one POST
+   PCM-equal to the CLI render of its arguments and its warm latency
+   (median of 7), then 3 bursts of 16 POSTs from 16 threads (plain and
+   heavy flags in turns, voice source): every reply 200, at most 2
+   dispatches per burst, no per-note fallback, each WAV equal at int16
+   to render_phrase of its batch in the batcher's order and within the
+   row-vs-note-alone budget of the CLI's render at its row's noise key;
+   a malformed body gets 500 with a traceback; prints the server: line
+   (single-POST ms, burst wall ms from the first send to the last reply,
+   dispatches, x realtime, launches);
+16. the facade: models/hnm.synthesize on the voice source's 2 s with
+   every option the note render never sets (subharmonic semitones -12
+   and +12 under vibrato and f0 jitter, f0 and volume jitter with volume
+   vibrato, roughness, brightness off): 3 pulse launches and 1 cascade
+   launch per call, held to the port's CPU render (harmonic stem 5e-3 x
+   peak on all but 0.1% of samples and 0.1 dB LSD; noisy stems within
+   max(1 dB, CPU seed-to-seed + 0.5 dB)), then compat.f0_estimate and
+   extract_formants on the card against the CPU (one launch of each
+   analysis kernel); prints the facade: line (warm ms per call, launches);
+   the pulse and cascade checks of steps 3-4 include the facade's densest
+   passes (f0 x 2 under the default jitter, +12 semitones with vibrato,
+   its derived table bounds) and its roughness high-pass;
+17. print the phrases, analysis, server, facade and kernels summaries as
+   one JSON line each, then the device line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
 launches between one pair of CUDA events, enqueued behind a spin kernel
@@ -106,16 +129,21 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from goofer_tpu_torch import cli, config
+from goofer_tpu_torch import cli, compat, config
 from goofer_tpu_torch.analysis import features, formants, pitch
+from goofer_tpu_torch.engine import synth
 from goofer_tpu_torch.io.goofy import load_features
-from goofer_tpu_torch.ops import envelope, pulse, scan_iir
+from goofer_tpu_torch.models import hnm
+from goofer_tpu_torch.ops import envelope, jitter, noise, pulse, scan_iir
 from goofer_tpu_torch.ops.cuda import (
     _build,
     burg_kernel,
@@ -124,7 +152,7 @@ from goofer_tpu_torch.ops.cuda import (
     pulse_kernel,
     viterbi_kernel,
 )
-from goofer_tpu_torch.sampler import phrase
+from goofer_tpu_torch.sampler import phrase, server
 from goofer_tpu_torch.sampler.render_core import render_note
 from goofer_tpu_torch.sampler.resampler import GooferResampler
 from goofer_tpu_torch.utils.audio_io import read_wav, read_wav_mono, write_wav
@@ -199,6 +227,19 @@ PHRASE_SCALE_HZ = (261.63, 293.66, 329.63, 349.23, 392.0, 440.0, 493.88,
                    523.25, 220.0, 196.0)
 # the voice source's notes, the longest on the main path
 N_LONG = 48510
+# the server's burst: 16 POSTs, one per note, from 16 threads
+SERVER_BURST = 16
+SERVER_BURST_REPS = 3
+# the facade call: models/hnm.synthesize on the voice source's features
+# with every option that the note render never sets
+FACADE_OPTIONS = dict(
+    add_subharm=True, subharm_semitones=(-12, 12), subharm_vibrato=True,
+    subharm_f0_jitter=0.3, f0_jitter=True, volume_jitter=True,
+    volume_vibrato=True, roughness_on=True, apply_brightness=False)
+# one launch of the pulse kernel for the main pass and one per semitone;
+# one of the cascade kernel for the roughness high-pass
+FACADE_PULSE_LAUNCHES = 3
+FACADE_CASCADE_LAUNCHES = 1
 # launches per kernel timing; the plain versions run tens to thousands of
 # small ops per call and get fewer
 TIMED_REPS = 100
@@ -235,28 +276,32 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int = TIMED_REPS, gap_free: bool = True) -> float:
     """Device ms per call of ``fn``: ``reps`` warm calls between one pair
-    of CUDA events, enqueued behind a spin kernel.  With ``gap_free`` it
-    raises if the host took longer to enqueue them than the spin lasted,
-    since the device would then have waited on the host."""
+    of CUDA events, enqueued behind a spin kernel.  With ``gap_free`` a
+    run whose enqueueing outlasted the spin (the device then waited on
+    the host, which a one-card machine shares) is repeated behind a spin
+    twice as long; after three such runs it raises."""
     fn()
     torch.cuda.synchronize()
-    spin, start, stop = (torch.cuda.Event(enable_timing=True)
-                         for _ in range(3))
-    spin.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    stop.record()
-    torch.cuda.synchronize()
-    spin_ms = spin.elapsed_time(start)
-    if gap_free and not host_ms < spin_ms:
-        raise AssertionError(f"enqueueing {reps} calls took {host_ms:.2f} "
-                             f"ms, longer than the {spin_ms:.2f} ms spin: "
-                             "the device waited on the host")
-    return start.elapsed_time(stop) / reps
+    cycles = SPIN_CYCLES
+    for _ in range(3):
+        spin, start, stop = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        torch.cuda.synchronize()
+        spin_ms = spin.elapsed_time(start)
+        if not gap_free or host_ms < spin_ms:
+            return start.elapsed_time(stop) / reps
+        cycles *= 2
+    raise AssertionError(f"enqueueing {reps} calls took {host_ms:.2f} ms, "
+                         f"longer than the {spin_ms:.2f} ms spin: the "
+                         "device waited on the host")
 
 
 def device_events(prof):
@@ -323,15 +368,17 @@ def kernel_edges(n: int) -> list[int]:
 
 
 def pulse_pass_args(f0_np: np.ndarray, gated: bool,
-                    max_overlap: int | None = None) -> tuple:
+                    max_overlap: int | None = None,
+                    min_spacing: int | None = None) -> tuple:
     """The pass's scalars after f0 and gate: (sr, scale, fallback_f0, Ra,
     Rg, Rk, guard, K, min_spacing).  Main pass as the resampler derives
     them for the main layer (K and spacing from the pitch range, or the
     ``max_overlap`` a group was harmonized to); gated pass as the sg
-    layer's semitone +12 (ratio 2, K 8, spacing 8)."""
+    layer's semitone +12 (ratio 2, K 8, spacing 8).  ``min_spacing``
+    gives the pass the spacing a caller derived (the facade's)."""
     if gated:
         return (SR, 2.0, config.PULSE_FALLBACK_F0 * 2.0, 0.02, 1.7, 1.0,
-                False, 8, 8)
+                False, 8, min_spacing or 8)
     voiced = f0_np[f0_np > 0]
     hi = max(float(voiced.max()) if voiced.size else 0.0,
              config.PULSE_FALLBACK_F0)
@@ -339,7 +386,7 @@ def pulse_pass_args(f0_np: np.ndarray, gated: bool,
              config.PULSE_FALLBACK_F0)
     k = max_overlap or config.bucket_overlap(
         int(min(32, max(3, np.ceil(0.804 * hi / lo) + 2))))
-    spacing = config.bucket_min_spacing(int(SR / hi))
+    spacing = min_spacing or config.bucket_min_spacing(int(SR / hi))
     return (SR, 1.0, config.PULSE_FALLBACK_F0, 0.02, 1.7, 0.8, True, k,
             spacing)
 
@@ -403,6 +450,36 @@ def phrase_pulse_cases():
     return [("phrase_b50", short, None, 32),
             ("phrase_b80", long, None, 32),
             ("phrase_sg_b80", long, (long > 0).astype(np.float32), None)]
+
+
+def facade_inputs():
+    """The voice source's features as models/hnm.synthesize takes them:
+    the knot pack, f0, voicing mask and formant dict (2 s)."""
+    pack, f0, mask, forms, _, _ = load_features(
+        REPO / "tests" / "golden" / "voice" / "src_features.goofy")
+    return pack, f0, mask, forms
+
+
+def facade_pulse_cases():
+    """(name, f0 (1, n), gate or None, K, spacing) at the facade's
+    densest setting on the voice source: f0 doubled (pitch_shift 2) under
+    the default f0 jitter (strength 1.5, speed 100), and the +12
+    semitone's gated pass on that track under the default 0.1-depth
+    vibrato, with the table bounds models/hnm.pulse_bounds derives."""
+    _, f0_np, mask_np, _ = facade_inputs()
+    n = len(f0_np)
+    f0 = torch.as_tensor(f0_np * 2.0, dtype=torch.float32)[None]
+    mask = torch.as_tensor(mask_np, dtype=torch.float32)[None]
+    keys = torch.as_tensor(noise.stream_keys([0], synth.SYNTH_STREAMS))
+    jit = jitter.f0_jitter(keys[:, synth.STREAM_F0_JITTER], n, SR, 100.0,
+                           1.5)
+    f0 = f0 * (1.0 + (jit - 1.0) * mask)
+    sub = jitter.subharm_vibrato(f0, SR, 6.0, 0.1, 0.1)
+    k, spacing, sub_spacing = hnm.pulse_bounds(
+        f0_np, 2.0, SR, True, 1.5, True, (12.0,), True, 0.1, 0.3)
+    return [("facade_main", f0.numpy(), None, k, spacing),
+            ("facade_sub_p12", sub.numpy(), mask.numpy(), None,
+             sub_spacing)]
 
 
 def _pulse_cases():
@@ -471,11 +548,11 @@ def check_pulse_kernel(cases):
     dev = torch.device("cuda")
     worst = 0.0
     rows = {}
-    for name, f0_np, gate_np, k_over in cases:
+    for name, f0_np, gate_np, k_over, *spacing in cases:
         f0 = torch.as_tensor(f0_np, device=dev)
         gate = None if gate_np is None else torch.as_tensor(gate_np,
                                                             device=dev)
-        args = pulse_pass_args(f0_np, gate is not None, k_over)
+        args = pulse_pass_args(f0_np, gate is not None, k_over, *spacing)
         got = pulse_accumulate(f0, gate, *args)
         # at phase ties the kernel's exact phase decides
         want = (exact_phase_plain(f0, args) if name == "ties"
@@ -580,6 +657,15 @@ def cascade_cases():
         cases.append((f"hp12_layer_{n_long}", x_long[None],
                       _layer_alpha(f0_long), 12, "highpass"))
     return cases
+
+
+def facade_cascade_cases():
+    """(name, x, alpha, order, btype): the roughness high-pass of the
+    facade call, order 1 at 320 Hz over the voice source's 2 s."""
+    x, _ = _voiced_signal(2 * SR, np.random.default_rng(3))
+    rc = 1.0 / (2.0 * np.pi * 320.0)
+    alpha = np.full(2 * SR, rc / (rc + 1.0 / SR), dtype=np.float32)
+    return [("facade_rough_hp1", x[None], alpha, 1, "highpass")]
 
 
 def phrase_cascade_cases():
@@ -1712,6 +1798,269 @@ def check_flag_notes(tmp: Path) -> None:
                                  "silent")
 
 
+def burst_args(src: Path, out_dir: Path, count: int, tag: str) -> list:
+    """``count`` POST argument lists on ``src``, one per note of a scale,
+    plain ``t`` flags and the heavy 11-flag stack in turns, 60 + 250-550
+    ms each, writing ``out_dir/<tag><j>.wav``."""
+    return [[str(src), str(out_dir / f"{tag}{j}.wav"), PHRASE_SCALE[j % 10],
+             "100", HEAVY[3] if j % 2 else f"t{(j % 7 - 3) * 10}", "0",
+             str(250 + 20 * j), "60", "0", "100", "0", "!120", "AA"]
+            for j in range(count)]
+
+
+def _post(url: str, body: str) -> int:
+    req = urllib.request.Request(url, data=body.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.status
+
+
+def _pcm_float(path) -> np.ndarray:
+    return np.asarray(read_wav(path)[0], np.float32)
+
+
+def _burst(url: str, args: list) -> float:
+    """POST every argument list at once from its own thread; returns the
+    wall ms from the first send to the last reply, and raises unless
+    every reply is 200."""
+    results = [None] * len(args)
+    started = []
+    barrier = threading.Barrier(len(args),
+                                action=lambda: started.append(
+                                    time.perf_counter()))
+
+    def post(j):
+        barrier.wait()
+        try:
+            results[j] = _post(url, " ".join(args[j]))
+        except Exception as e:
+            results[j] = e
+
+    threads = [threading.Thread(target=post, args=(j,))
+               for j in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall_ms = (time.perf_counter() - started[0]) * 1e3
+    if any(t.is_alive() for t in threads) or results != [200] * len(args):
+        raise AssertionError(f"server burst: replies {results}")
+    return wall_ms
+
+
+def server_slice(tmp: Path) -> dict:
+    """Drive the port's HTTP server in-process on the card: warm-up, one
+    POST held to the CLI render of the same arguments (PCM-equal), its
+    warm latency, then bursts of 16 POSTs from 16 threads (the kernels'
+    launch counters set to 0 just before and read just after), each
+    burst's notes held to render_phrase of the same notes in the
+    batcher's order (equal at int16) and to the CLI's render (PERF.md
+    section 2's row-vs-note-alone budget, noise on, at the row's noise
+    key), and a malformed
+    body answered 500 with a traceback.  Returns the numbers, with the
+    path's launches under "launches"."""
+    os.environ[config.DEVICE_ENV] = "cuda"
+    src = tmp / "voice.wav"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as warm:
+        server.warmup(warm)
+    warmup_s = time.perf_counter() - t0
+    httpd = server.ThreadedHTTPServer(("127.0.0.1", 0), server.RequestHandler)
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    batcher = server._batcher
+    batches = []
+    render = batcher._render
+    batcher._render = lambda batch: (
+        batches.append([r.args for r in batch]), render(batch))[1]
+    try:
+        single = burst_args(src, tmp, 1, "single")[0]
+        alone = tmp / "single_cli.wav"
+        if (_post(url, " ".join(single)) != 200
+                or cli.main([single[0], str(alone)] + single[2:]) != 0):
+            raise AssertionError("server: the single POST or its CLI "
+                                 "render failed")
+        if not np.array_equal(read_wav(single[1])[0], read_wav(alone)[0]):
+            raise AssertionError("server: the single POST's WAV differs "
+                                 "from the CLI render of its arguments")
+        single_ms = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            _post(url, " ".join(single))
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+
+        runs = [burst_args(src, tmp, SERVER_BURST, f"burst{r}_")
+                for r in range(SERVER_BURST_REPS)]
+        fallbacks = batcher.fallback_count
+        batches.clear()
+        pulse_kernel.pulse_accumulate.launches = 0
+        cascade_kernel.one_pole_cascade.launches = 0
+        walls = [_burst(url, args) for args in runs]
+        launches = _launches()
+        sizes = [len(b) for b in batches]
+        if batcher.fallback_count != fallbacks:
+            raise AssertionError("server: a well-formed burst fell back to "
+                                 "per-note rendering")
+        per_burst = len(sizes) / SERVER_BURST_REPS
+        if sum(sizes) != SERVER_BURST * SERVER_BURST_REPS or per_burst > 2:
+            raise AssertionError(f"server: bursts of {SERVER_BURST} POSTs "
+                                 f"dispatched as {sizes}")
+        if min(launches) <= 0:
+            raise AssertionError(f"server: bursts launched the pulse and "
+                                 f"cascade kernels {launches} times")
+
+        # the last burst's WAVs: render_phrase of each batch in the
+        # batcher's order, and the CLI's render (GooferResampler) of each
+        # note at its row's noise key (seed 0, index in the batch)
+        last = [b for b in batches if b[0][1] in {a[1] for a in runs[-1]}]
+        worst, worst_floor = (0.0, 0.0), 0.0
+        for batch in last:
+            if len(batch) < server.BurstBatcher.MIN_PHRASE:
+                for a in batch:
+                    cli.main([a[0], str(alone)] + a[2:])
+                    if not np.array_equal(read_wav(a[1])[0],
+                                          read_wav(alone)[0]):
+                        raise AssertionError(f"server: {a[1]} differs from "
+                                             "the CLI render")
+                continue
+            want = phrase.render_phrase(
+                [phrase.NoteSpec(a[0], *a[2:]) for a in batch], pcm16=True,
+                bucket=True)
+            for k, (a, w) in enumerate(zip(batch, want)):
+                if not np.array_equal(read_wav(a[1])[0], w / 32768.0):
+                    raise AssertionError(f"server: {a[1]} differs from "
+                                         "render_phrase of its batch")
+                # the budget's seed-to-seed term: the CLI's own render at
+                # another seed, since a bucketed row normalizes the sh/sr
+                # jitter noise over its padded length (another realization)
+                other = tmp / "single_cli_seed1.wav"
+                GooferResampler(a[0], other, *a[2:], seed=(1, k))
+                GooferResampler(a[0], alone, *a[2:], seed=(0, k))
+                floor = lsd_db(_pcm_float(other), _pcm_float(alone), SR)
+                err = _hold(f"server {Path(a[1]).name} vs the CLI render",
+                            _pcm_float(a[1]), _pcm_float(alone), False,
+                            floor)
+                worst = tuple(max(x, y) for x, y in zip(worst, err))
+                worst_floor = max(worst_floor, floor)
+
+        try:
+            _post(url, "no wav paths here")
+            raise AssertionError("server: a malformed body was answered 200")
+        except urllib.error.HTTPError as e:
+            body = e.read()
+            if e.code != 500 or not body.startswith(
+                    b"An error occurred.\n") or b"Traceback" not in body:
+                raise AssertionError(f"server: a malformed body got {e.code} "
+                                     f"{body[:80]!r}")
+    finally:
+        del batcher._render
+        httpd.shutdown()
+        httpd.server_close()
+    audio_s = sum((60 + 250 + 20 * j) / 1000.0 for j in range(SERVER_BURST))
+    out = {
+        "warmup_s": warmup_s,
+        "single_post_ms": statistics.median(single_ms),
+        "burst_notes": SERVER_BURST, "burst_audio_s": audio_s,
+        "burst_wall_ms": walls,
+        "burst_wall_ms_median": statistics.median(walls),
+        "dispatches_per_burst": per_burst, "batch_sizes": sizes,
+        "x_realtime": audio_s * 1e3 / statistics.median(walls),
+        "fallback_count": batcher.fallback_count - fallbacks,
+        "vs_cli_max_diff_over_peak": worst[0], "vs_cli_lsd_db": worst[1],
+        "cli_seed_to_seed_lsd_db": worst_floor,
+        "launches": launches,
+    }
+    print(f"server: warm single POST {out['single_post_ms']:.3f} ms "
+          f"(median of 7), burst of {SERVER_BURST} POSTs "
+          f"{out['burst_wall_ms_median']:.3f} ms from the first send to the "
+          f"last reply (median of {SERVER_BURST_REPS}: "
+          f"{', '.join(f'{w:.3f}' for w in walls)}), {per_burst:.1f} "
+          f"dispatches per burst {sizes}, {out['x_realtime']:.1f} x "
+          f"realtime, fallbacks 0; launches over the bursts: pulse "
+          f"{launches[0]} cascade {launches[1]}; burst WAVs equal "
+          f"render_phrase at int16; vs the CLI's render at the row's key "
+          f"(noise on) max|diff|/peak {worst[0]:.3e}, LSD {worst[1]:.4f} "
+          f"dB (the CLI's seed-to-seed LSD up to {worst_floor:.4f} dB); "
+          f"warm-up {warmup_s:.2f} s")
+    return out
+
+
+def facade_slice() -> dict:
+    """Drive the facade on the card: models/hnm.synthesize on the voice
+    source's features with FACADE_OPTIONS (the kernels' launch counters
+    set to 0 just before and read just after one call), held to the
+    port's CPU render of the same call (harmonic stem as PERF.md section
+    2's noise-zeroed budget, the noisy stems within max(1 dB, CPU
+    seed-to-seed + 0.5 dB)); then compat.f0_estimate and
+    extract_formants on the voice recording, card vs CPU.  Returns the
+    numbers, with the launches under "launches"."""
+    pack, f0, mask, forms = facade_inputs()
+
+    def call(device, seed=0):
+        os.environ[config.DEVICE_ENV] = device
+        return hnm.synthesize(pack, f0, mask, None, SR, formants=forms,
+                              seed=seed, **FACADE_OPTIONS)
+
+    call("cuda")
+    pulse_kernel.pulse_accumulate.launches = 0
+    cascade_kernel.one_pole_cascade.launches = 0
+    card = call("cuda")
+    launches = _launches()
+    if launches != (FACADE_PULSE_LAUNCHES, FACADE_CASCADE_LAUNCHES):
+        raise AssertionError(f"facade: {launches} pulse and cascade "
+                             f"launches per call, expected "
+                             f"{FACADE_PULSE_LAUNCHES} and "
+                             f"{FACADE_CASCADE_LAUNCHES}")
+    warm_ms = _median_ms(lambda: call("cuda"), 7)
+    cpu, cpu1 = call("cpu"), call("cpu", seed=1)
+    harm = _hold("facade harmonic stem card vs CPU", card[1], cpu[1], True)
+    stems = {}
+    for i, name in enumerate(("mix", "harmonic", "uv", "breath")):
+        floor = lsd_db(cpu1[i], cpu[i], SR)
+        stems[name] = (_hold(f"facade {name} card vs CPU", card[i], cpu[i],
+                             False, floor)[1], floor)
+
+    y = recording("tests/golden/voice/src.wav")
+    os.environ[config.DEVICE_ENV] = "cuda"
+    before = _analysis_launches()
+    f0_card = compat.f0_estimate(y, SR, HOP / SR)
+    forms_card = compat.extract_formants(y, SR, HOP)
+    a_launches = tuple(b - a for a, b in zip(before, _analysis_launches()))
+    os.environ[config.DEVICE_ENV] = "cpu"
+    f0_cpu = compat.f0_estimate(y, SR, HOP / SR)
+    forms_cpu = compat.extract_formants(y, SR, HOP)
+    os.environ[config.DEVICE_ENV] = "cuda"
+    if min(a_launches) <= 0:
+        raise AssertionError(f"facade: the analysis launched the Viterbi, "
+                             f"root and Burg kernels {a_launches} times")
+    f0_share = float((np.abs(f0_card - f0_cpu)
+                      <= 1e-3 * np.maximum(f0_cpu, 1.0)).mean())
+    _formants_close("facade extract_formants card vs CPU", forms_card,
+                    forms_cpu)
+    if f0_card.shape != f0_cpu.shape or f0_share < 0.98:
+        raise AssertionError(f"facade f0_estimate card vs CPU: "
+                             f"{f0_share:.4f} of frames within 1e-3")
+    out = {
+        "call_ms": warm_ms, "audio_s": len(f0) / SR,
+        "harmonic_max_diff_over_peak": harm[0], "harmonic_lsd_db": harm[1],
+        "stem_lsd_db": {k: v[0] for k, v in stems.items()},
+        "cpu_seed_to_seed_lsd_db": {k: v[1] for k, v in stems.items()},
+        "f0_frames_within_1e-3": f0_share,
+        "launches": launches, "analysis_launches": a_launches,
+    }
+    print(f"facade: models.hnm.synthesize with {sorted(FACADE_OPTIONS)} on "
+          f"{out['audio_s']:.2f} s: warm {warm_ms:.3f} ms per call (median "
+          f"of 7), launches per call: pulse {launches[0]} cascade "
+          f"{launches[1]}; card vs CPU harmonic max|diff|/peak "
+          f"{harm[0]:.3e} LSD {harm[1]:.4f} dB, noisy stems LSD "
+          + ", ".join(f"{k} {v[0]:.3f} (seed-to-seed {v[1]:.3f})"
+                      for k, v in stems.items())
+          + f" dB; compat f0_estimate / extract_formants launches Viterbi "
+          f"{a_launches[0]} roots {a_launches[1]} Burg {a_launches[2]}, f0 "
+          f"within 1e-3 on {f0_share:.4f} of frames")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1727,9 +2076,10 @@ def main() -> int:
     print(f"build {', '.join(p.name for p in libs)}: "
           f"{time.perf_counter() - t0:.2f} s")
 
-    err, p_rows = check_pulse_kernel(_pulse_cases() + phrase_pulse_cases())
-    c_err, c_rel, c_rows = check_cascade_kernel(cascade_cases()
-                                                + phrase_cascade_cases())
+    err, p_rows = check_pulse_kernel(_pulse_cases() + phrase_pulse_cases()
+                                     + facade_pulse_cases())
+    c_err, c_rel, c_rows = check_cascade_kernel(
+        cascade_cases() + phrase_cascade_cases() + facade_cascade_cases())
     dev = torch.device("cuda")
     v_err, v_bad, v_rows = check_viterbi_kernel(viterbi_cases(dev))
     frame_cases = lpc_cases(dev)
@@ -1747,12 +2097,17 @@ def main() -> int:
         prof = profile_heavy(Path(tmp))
         phrases = phrase_slice(Path(tmp))
         analysis = analysis_slice(Path(tmp))
+        served = server_slice(Path(tmp))
+        facade = facade_slice()
     v_launches, r_launches, b_launches = analysis.pop("launches")
     if min(v_launches, r_launches, b_launches) <= 0:
         raise AssertionError(
             f"the folder extraction launched the Viterbi kernel "
             f"{v_launches}, the root kernel {r_launches} and the Burg "
             f"kernel {b_launches} times")
+    sv_launches, sv_c_launches = served.pop("launches")
+    fa_launches, fa_c_launches = facade.pop("launches")
+    fa_analysis = facade.pop("analysis_launches")
     ph_launches, ph_c_launches = phrases.pop("launches")
     if ph_launches <= 0 or ph_c_launches <= 0:
         raise AssertionError(f"the phrases launched the pulse kernel "
@@ -1783,6 +2138,8 @@ def main() -> int:
     *_, ms, p_ms, bound, bound_by = p_rows["glide_gap"]
     print(json.dumps({"phrases": phrases}))
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"server": served}))
+    print(json.dumps({"facade": facade}))
     def per_chunk(n_launches):
         return {"launches_per_chunk": n_launches / analysis["chunks"],
                 "chunks": analysis["chunks"],
@@ -1802,7 +2159,9 @@ def main() -> int:
                 "scans of max-plus matrices; here the sequential solve "
                 "with a backtrace, one CTA per file, the transition costs "
                 "computed ahead of the chain",
-        "launches": v_launches,
+        "launches": v_launches + fa_analysis[0],
+        "launches_folder_path": v_launches,
+        "launches_facade_path": fa_analysis[0],
         **per_chunk(v_launches),
         "max_abs_err": v_err,
         "path_frames_differing": v_bad,
@@ -1826,7 +2185,9 @@ def main() -> int:
         "note": "replaces non-Pallas JAX code: _poly_roots_dk's fori_loop "
                 "of 60 Durand-Kerner iterations; floor(32 / order) "
                 "frames per warp, a root per lane",
-        "launches": r_launches,
+        "launches": r_launches + fa_analysis[1],
+        "launches_folder_path": r_launches,
+        "launches_facade_path": fa_analysis[1],
         **per_chunk(r_launches),
         "max_abs_err": r_err,
         "ms": r_ms,
@@ -1852,7 +2213,9 @@ def main() -> int:
                 "over the order; one warp per frame, each lane's "
                 "stretch of the errors in registers (shared memory past "
                 "1152 samples)",
-        "launches": b_launches,
+        "launches": b_launches + fa_analysis[2],
+        "launches_folder_path": b_launches,
+        "launches_facade_path": fa_analysis[2],
         **per_chunk(b_launches),
         "max_abs_err": b_err,
         "ms": b_ms,
@@ -1877,9 +2240,12 @@ def main() -> int:
                 "pulse train out: phase scan, onsets and onset tables "
                 "(goofer_tpu/ops/pulse.py:109, :84, :170) and the "
                 "K-bounded LF accumulation of the Pallas kernel",
-        "launches": launches + ph_launches,
+        "launches": launches + ph_launches + sv_launches + fa_launches,
         "launches_note_path": launches,
         "launches_phrase_path": ph_launches,
+        "launches_server_path": sv_launches,
+        "launches_per_server_burst": sv_launches / SERVER_BURST_REPS,
+        "launches_per_facade_call": fa_launches,
         "launches_per_phrase": {k: v["pulse_launches"]
                                 for k, v in phrases.items()},
         "launches_per_heavy_note": heavy[0],
@@ -1904,9 +2270,13 @@ def main() -> int:
         "replaces": "goofer_tpu/ops/scan_iir.py:41",
         "note": "replaces non-Pallas JAX code: first_order_recurrence_pos, "
                 "the stage solver of dynamic_one_pole_cascade",
-        "launches": c_launches + ph_c_launches,
+        "launches": (c_launches + ph_c_launches + sv_c_launches
+                     + fa_c_launches),
         "launches_note_path": c_launches,
         "launches_phrase_path": ph_c_launches,
+        "launches_server_path": sv_c_launches,
+        "launches_per_server_burst": sv_c_launches / SERVER_BURST_REPS,
+        "launches_per_facade_call": fa_c_launches,
         "launches_per_phrase": {k: v["cascade_launches"]
                                 for k, v in phrases.items()},
         "launches_per_heavy_note": heavy[1],

@@ -1,16 +1,17 @@
 """SillySampler-compatible CLI (ref: SillySampler.py:1226-1275).
 
-Port of goofer_tpu/cli.py.  Two modes:
+Port of goofer_tpu/cli.py.  Three modes:
 
+* no arguments: the HTTP resampler server on :8572 (sampler/server.py);
 * 13 arguments: render one note (a source without a ``.goofy`` cache is
   analysed first and the cache saved beside it);
 * one argument, an existing folder or audio file: extract and cache the
   features of every audio file under it.
 
-Both run on CUDA unless $GOOFER_TPU_TORCH_DEVICE names another device;
-without CUDA they fail rather than falling back.  The other modes of the
-JAX CLI (HTTP server, voicing-editor batch) are not ported yet and exit
-with rc 1.
+All run on CUDA unless $GOOFER_TPU_TORCH_DEVICE names another device;
+without CUDA they fail rather than falling back.  The JAX CLI's
+voicing-editor batch mode (every argument a ``.goofy``) is not ported yet
+and exits with rc 1.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ log = logging.getLogger("goofer_tpu_torch")
 
 HELP_STRING = (
     "Usage:\n"
+    "  python -m goofer_tpu_torch.cli                          "
+    "(HTTP server on :8572)\n"
     "  python -m goofer_tpu_torch.cli in.wav out.wav pitch velocity flags\n"
     "           offset(ms) length(ms) consonant(ms) cutoff(ms)\n"
     "           volume(%) modulation(%) !tempo pitch_string\n"
@@ -36,9 +39,7 @@ HELP_STRING = (
 
 
 def _unported_mode(argv) -> str | None:
-    if not argv:
-        return "HTTP server mode"
-    if all(Path(a).suffix.lower() == ".goofy" for a in argv):
+    if argv and all(Path(a).suffix.lower() == ".goofy" for a in argv):
         return "voicing-editor mode"
     return None
 
@@ -47,6 +48,17 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     log.info("goofer_tpu_torch SillySampler %s (surface-compatible with %s)",
              config.VERSION, config.REFERENCE_CLI_VERSION)
+    if not argv:
+        from goofer_tpu_torch.sampler import server
+
+        try:
+            server.run()
+        except TypeError:
+            log.info(HELP_STRING)
+        except Exception:
+            log.exception("Server failed")
+            return 1
+        return 0
     mode = _unported_mode(argv)
     if mode is not None:
         log.error("%s is not yet ported to goofer_tpu_torch; use "

@@ -48,6 +48,9 @@ PULSE_MAX_OVERLAP = 16
 # (ref: GOOFER.py:481).
 PULSE_FALLBACK_F0 = 160.0
 
+# HTTP server port for the resampler server mode (ref: SillySampler.py:1220).
+SERVER_PORT = 8572
+
 VERSION = "0.1.1"
 # Version string of the reference CLI surface we reproduce
 # (ref: SillySampler.py:1226).

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import io
 import os
+import threading
 import zipfile
 
 import numpy as np
@@ -106,11 +107,17 @@ def save_features(path, features, f0_interp, voicing_mask, formants, sr,
 
 
 def save_features_atomic(path, *args, **kwargs) -> None:
-    """Atomic variant: write to .tmp then os.replace
-    (ref: SillyEditor.py:540-542)."""
-    tmp = str(path) + ".tmp"
-    save_features(tmp, *args, **kwargs)
-    os.replace(tmp, str(path))
+    """Atomic variant: write to a temporary file, then os.replace
+    (ref: SillyEditor.py:540-542).  The temporary name is unique to the
+    process and thread, so concurrent writers of one path never write
+    into one file: readers see no bundle or a whole one."""
+    tmp = f"{path}.{os.getpid()}-{threading.get_ident()}.tmp"
+    try:
+        save_features(tmp, *args, **kwargs)
+        os.replace(tmp, str(path))
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def load_features(path):

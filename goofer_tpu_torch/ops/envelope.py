@@ -5,8 +5,9 @@ a (n_bins, T) envelope to K log-amplitude knots on a mel grid with an
 adaptive K search (ref: GOOFER.py:74-168; decode is goofer_tpu's dense
 (n_bins, K) @ (K, T) product, here the two-tap lerp each row of that
 matrix is, in the search's reconstructions too), the global and
-per-formant frequency warps, the vocal-fry compression,
-envelope smoothing / sharpening and frame-count matching.  The
+per-formant frequency warps, the width warp, brightness tilt and
+formant strength bells, the vocal-fry compression, envelope smoothing /
+sharpening and frame-count matching.  The
 per-formant warp and the fry compression resample each column with
 ``torch.gather``; goofer_tpu's banded dense-select form of that gather
 exists only to dodge a TPU gather cost and is not ported.
@@ -44,6 +45,17 @@ def mel_knot_freqs(sr: int, n_fft: int, k: int) -> np.ndarray:
     mel_min, mel_max = hz_to_mel(0.0), hz_to_mel(sr / 2.0)
     mel_knots = np.linspace(mel_min, mel_max, k, dtype=COMPUTE_DTYPE)
     return mel_to_hz(mel_knots).astype(COMPUTE_DTYPE)
+
+
+def interp_matrix(freqs_full: np.ndarray, hz_knots: np.ndarray) -> np.ndarray:
+    """The dense (n_bins, K) linear-interp matrix W of env = exp(W @
+    knots) (ref: GOOFER.py:84-95), from ``interp_taps``."""
+    idx, w = interp_taps(np.asarray(freqs_full), np.asarray(hz_knots))
+    out = np.zeros((len(freqs_full), len(hz_knots)), dtype=COMPUTE_DTYPE)
+    rows = np.arange(len(freqs_full))
+    out[rows, idx] = w[:, 0]
+    out[rows, idx + 1] = w[:, 1]
+    return out
 
 
 def interp_taps(freqs_full: np.ndarray, hz_knots: np.ndarray):
@@ -230,6 +242,59 @@ def warp_env_by_formants(env: torch.Tensor, orig_formants: torch.Tensor,
 
     pos = warped_freqs / nyq * (n_bins - 1)
     return gather_lerp_columns(env, pos)
+
+
+def formant_width_warp(env: torch.Tensor, amount) -> torch.Tensor:
+    """Stretch the bin axis of (..., n_bins, T) away from its midpoint
+    (ref: SillySampler.py:554-574); ``amount`` a float, or (B,) for the
+    rows of a (B, n_bins, T) batch."""
+    n_bins = env.shape[-2]
+    bins = torch.arange(n_bins, dtype=torch.float32, device=env.device)
+    center = n_bins / 2.0
+    pos = torch.clamp((bins - center) * (1.0 + per_row(amount)) + center,
+                      0.0, n_bins - 1.0)
+    return gather_lerp(env, pos, axis=-2)
+
+
+def brightness_tilt(env: torch.Tensor, brightness_env, sr: int
+                    ) -> torch.Tensor:
+    """Mean-normalized spectral tilt ``norm_f ** alpha`` of (..., n_bins,
+    T) (ref: SillySampler.py:503-515); ``brightness_env`` a float, or
+    (B,) for the rows of a (B, n_bins, T) batch."""
+    n_bins = env.shape[-2]
+    freqs = np.linspace(1e-6, sr * 0.5, n_bins, dtype=np.float32)
+    norm_f = torch.as_tensor(np.clip(freqs / (sr * 0.5), 0.02, 1.0),
+                             device=env.device)
+    brightness_env = torch.as_tensor(brightness_env, dtype=torch.float32,
+                                     device=env.device)
+    alpha = per_row(torch.clamp(brightness_env - 1.0, -0.9, 1.0))
+    tilt = norm_f ** alpha
+    tilt = tilt / (torch.mean(tilt, dim=-1, keepdim=True) + 1e-12)
+    return env * tilt[..., None]
+
+
+FORMANT_BELL_SIGMAS_HZ = (100.0, 200.0, 350.0, 500.0)
+
+
+def formant_strength_gain(env_shape_2d, formant_tracks: torch.Tensor,
+                          strengths, sr: int) -> torch.Tensor:
+    """Per-formant Gaussian gain bells (ref: SillySampler.py:791-833):
+    the (..., n_bins, T) multiplicative gain of (..., 4, T) formant
+    tracks, ``env_shape_2d`` = (n_bins, T).  ``strengths`` is a 4-tuple,
+    or (B, 4) for a (B, 4, T) batch; zero strength is exactly unity
+    gain, and frames where a formant is outside (50, sr/2) get none."""
+    n_bins = env_shape_2d[0]
+    dev = formant_tracks.device
+    freqs = linspace(0.0, sr / 2.0, n_bins, dev)[:, None]
+    strengths = torch.as_tensor(strengths, dtype=torch.float32, device=dev)
+    gain = torch.ones(*formant_tracks.shape[:-2], n_bins,
+                      formant_tracks.shape[-1], device=dev)
+    for k in range(4):
+        fk = formant_tracks[..., k, None, :]
+        ok = torch.isfinite(fk) & (fk > 50.0) & (fk < sr * 0.5)
+        w = torch.exp(-0.5 * ((freqs - fk) / FORMANT_BELL_SIGMAS_HZ[k]) ** 2)
+        gain = gain * (1.0 + strengths[..., k, None, None] * w * ok)
+    return gain
 
 
 def _match_frame_means(orig: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,11 @@
-"""Stochastic texture modulators: volume/F0 jitter and subharmonic vibrato.
+"""Stochastic texture modulators: volume/F0 jitter, subharmonic vibrato
+and vocal roughness.
 
 Port of goofer_tpu/ops/jitter.py.  Every stochastic op draws with
 ops/noise.py from (B,) int64 ``keys``, one key per row and stream, and
 returns (B, length): a row's draw depends on its key alone.  The
 reference's global unseeded NumPy RNG (ref: GOOFER.py:638-670) makes
-parity spectral, never sample-exact.  ``vocal_roughness`` is not ported
-yet: the note render never enables it and it needs the one-pole
-highpass of ops/scan_iir.py.
+parity spectral, never sample-exact.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ import torch
 from goofer_tpu_torch.ops import noise as rnd
 from goofer_tpu_torch.ops.filters import gaussian_blur1d
 from goofer_tpu_torch.ops.interp import linspace, per_row
+from goofer_tpu_torch.ops.scan_iir import one_pole_highpass
 
 
 def _decimation(sigma: float) -> int:
@@ -92,18 +92,72 @@ def f0_jitter(keys: torch.Tensor, length: int, sr: float,
     return 1.0 + noise * per_row(strength)
 
 
-def subharm_vibrato(f0: torch.Tensor, sr: float, rate: float = 6.0,
-                    depth: float = 0.1, delay: float = 0.1) -> torch.Tensor:
+def subharm_vibrato(f0: torch.Tensor, sr: float, rate=6.0, depth=0.1,
+                    delay: float = 0.1) -> torch.Tensor:
     """Sinusoidal vibrato on the subharmonic f0 track (..., n), voiced
     samples only, with a linear fade-in over ``delay`` seconds
-    (ref: GOOFER.py:748-766).  The angular rate is a float32 product, as
-    in goofer_tpu's render where ``rate`` is a float32 knob: at 75 Hz a
-    one-ulp difference in it moves the vibrato'd f0 by ~0.01 Hz."""
+    (ref: GOOFER.py:748-766).  ``rate`` and ``depth`` are floats, or (B,)
+    for the rows of a (B, n) batch.  The angular rate is a float32
+    product, as in goofer_tpu's render where ``rate`` is a float32 knob:
+    at 75 Hz a one-ulp difference in it moves the vibrato'd f0 by ~0.01
+    Hz."""
     n = f0.shape[-1]
     t = torch.arange(n, dtype=torch.float32, device=f0.device) / sr
-    omega = torch.tensor(2.0 * math.pi, dtype=torch.float32) * rate
-    vib = torch.sin(omega.item() * t)
+    if isinstance(rate, torch.Tensor) and rate.ndim:
+        omega = (2.0 * math.pi) * rate.float()[:, None]
+        vib = torch.sin(omega.to(f0.device) * t)
+    else:
+        omega = torch.tensor(2.0 * math.pi, dtype=torch.float32) * rate
+        vib = torch.sin(omega.item() * t)
     fade = _fade_in(n, int(delay * sr), f0.device)
     if fade is not None:
         vib = vib * fade
-    return torch.where(f0 > 0, f0 * (1.0 + vib * depth), f0)
+    return torch.where(f0 > 0, f0 * (1.0 + vib * per_row(depth)), f0)
+
+
+def smooth_noise(keys: torch.Tensor, length: int, sr: float,
+                 smooth_ms: float = 120.0) -> torch.Tensor:
+    """(B, length) Gaussian-blurred noise per key, not normalized
+    (ref: GOOFER.py:894-899)."""
+    sigma = max(1.0, (smooth_ms * 1e-3 * sr) / 6.0)
+    return gaussian_blur1d(rnd.normal(keys, length), sigma)
+
+
+def vocal_roughness(keys: torch.Tensor, y: torch.Tensor, f0: torch.Tensor,
+                    mask: torch.Tensor, sr: float, k_list=(2, 3, 4),
+                    h_list=None, alpha: float = 0.6, hp_fc: float = 300.0,
+                    noise_amp: float = 0.6, noise_smooth_ms: float = 120.0,
+                    alpha_slew_ms: float = 120.0) -> torch.Tensor:
+    """Amplitude-modulate the harmonic rows ``y`` (B, n) with noisy
+    sub-multiples of their F0 and mix back only the high-passed
+    modulation residue, gated by a slewed voicing-scaled alpha
+    (ref: GOOFER.py:901-938).  ``keys`` (B,); the noise of sub-multiple
+    ``idx`` draws from sub-stream 1337 + idx of a row's key, as the
+    reference seeds it.  The high-pass is one launch of the cascade
+    kernel on the card for all rows."""
+    y = y.float()
+    f0 = f0.float()
+    mask = mask.float()
+    n = y.shape[-1]
+
+    k_list = list(k_list)
+    if h_list is None:
+        h_list = [0.45, 0.28, 0.18][: len(k_list)]
+        while len(h_list) < len(k_list):
+            h_list.append(h_list[-1] * 0.6)
+    h_list = list(h_list)[: len(k_list)]
+
+    mod_sum = torch.zeros_like(y)
+    for idx, (k, hk) in enumerate(zip(k_list, h_list)):
+        nz = smooth_noise(rnd.fold_in(keys, 1337 + idx), n, sr,
+                          noise_smooth_ms)
+        f_mod = (f0 / float(k)) * (1.0 + noise_amp * nz)
+        f_mod = torch.clamp(f_mod, min=0.0) * mask
+        # the phase sums in float64, as the reference's NumPy does
+        phase = (2.0 * math.pi) * torch.cumsum(f_mod.double(), dim=-1) / sr
+        mod_sum = mod_sum + hk * torch.cos(phase).float()
+
+    y_sub_hp = one_pole_highpass(y * mod_sum, sr, hp_fc)
+    sigma = max(1.0, (alpha_slew_ms * 1e-3 * sr) / 6.0)
+    alpha_slewed = gaussian_blur1d(alpha * mask, sigma)
+    return y + alpha_slewed * y_sub_hp

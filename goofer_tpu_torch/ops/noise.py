@@ -43,14 +43,25 @@ def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
     return (z >> s) & ((1 << (64 - s)) - 1)
 
 
+def _mix(z: torch.Tensor) -> torch.Tensor:
+    """SplitMix64's output function on int64 bit patterns."""
+    z = (z ^ _shr(z, 30)) * MIX1
+    z = (z ^ _shr(z, 27)) * MIX2
+    return z ^ _shr(z, 31)
+
+
 def random_bits(keys: torch.Tensor, m: int) -> torch.Tensor:
     """(B, m) int64 bit patterns: SplitMix64 outputs 1..m of each row's
     key (B,) int64."""
     ctr = torch.arange(1, m + 1, dtype=torch.int64, device=keys.device)
-    z = keys[:, None] + ctr * GOLDEN
-    z = (z ^ _shr(z, 30)) * MIX1
-    z = (z ^ _shr(z, 27)) * MIX2
-    return z ^ _shr(z, 31)
+    return _mix(keys[:, None] + ctr * GOLDEN)
+
+
+def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """(B,) keys of sub-stream ``data`` >= 0 of each row's key: its
+    draw ``data`` (``random_bits(keys, data + 1)[:, data]``), the
+    counterpart of ``jax.random.fold_in``."""
+    return _mix(keys + _i64((data + 1) * GOLDEN % (1 << 64)))
 
 
 def uniform(keys: torch.Tensor, m: int) -> torch.Tensor:

@@ -33,9 +33,17 @@ def frame_count(n_samples: int, n_fft: int, hop: int) -> int:
     return max(1, 1 + (padded - n_fft) // hop)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+def _window(n_fft: int, window, device) -> torch.Tensor:
+    return torch.as_tensor(sqrt_hann_window(n_fft) if window is None
+                           else np.asarray(window, dtype=np.float32),
+                           device=device)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int,
+         window: np.ndarray | None = None) -> torch.Tensor:
     """Complex STFT along the last axis of a (..., n) signal; returns
-    (..., n_fft//2 + 1, num_frames) complex64."""
+    (..., n_fft//2 + 1, num_frames) complex64.  ``window`` (n_fft,)
+    replaces the sqrt-Hann analysis window."""
     x = x.float()
     n = x.shape[-1]
     pad = n_fft // 2
@@ -48,7 +56,7 @@ def stft(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
             *x.shape[:-1], n_fft - xp.shape[-1])], dim=-1)
     num_frames = frame_count(n, n_fft, hop)
     frames = xp.unfold(-1, n_fft, hop)[..., :num_frames, :]   # (..., T, n_fft)
-    win = torch.as_tensor(sqrt_hann_window(n_fft), device=x.device)
+    win = _window(n_fft, window, x.device)
     return torch.fft.rfft(frames * win, dim=-1).transpose(-1, -2)
 
 
@@ -93,9 +101,12 @@ def _win_sum_rows(win_sum: torch.Tensor, true_frames: torch.Tensor,
 
 
 def istft(S: torch.Tensor, hop: int, length: int | None = None,
-          true_frames: torch.Tensor | None = None) -> torch.Tensor:
+          true_frames: torch.Tensor | None = None,
+          window: np.ndarray | None = None) -> torch.Tensor:
     """Inverse STFT of (..., n_bins, T) with windowed win^2-normalized
-    overlap-add; returns (..., samples).
+    overlap-add; returns (..., samples).  ``window`` (n_fft,) replaces
+    the sqrt-Hann synthesis window; the normalization stays the
+    sqrt-Hann window's, as in goofer_tpu.
 
     ``true_frames`` (B,) int64, for (B, n_bins, T) whose row b is zero
     from frame ``true_frames[b]`` on: each row is normalized by the
@@ -105,7 +116,7 @@ def istft(S: torch.Tensor, hop: int, length: int | None = None,
     n_fft = (S.shape[-2] - 1) * 2
     num_frames = S.shape[-1]
     batch = S.shape[:-2]
-    win = torch.as_tensor(sqrt_hann_window(n_fft), device=S.device)
+    win = _window(n_fft, window, S.device)
     frames = torch.fft.irfft(S, n=n_fft, dim=-2).float() * win[:, None]
 
     pad = n_fft // 2

@@ -29,14 +29,20 @@ import torch
 
 from goofer_tpu_torch import config
 from goofer_tpu_torch.engine.synth import (
-    SYNTH_STREAMS,
+    RENDER_STREAMS,
     SynthStatic,
     _synth_body,
 )
 from goofer_tpu_torch.ops import noise as rnd
-from goofer_tpu_torch.ops.envelope import env_shape, fry_env_shift
+from goofer_tpu_torch.ops.envelope import (
+    brightness_tilt,
+    env_shape,
+    formant_strength_gain,
+    formant_width_warp,
+    fry_env_shift,
+)
 from goofer_tpu_torch.ops.filters import gaussian_blur1d
-from goofer_tpu_torch.ops.interp import gather_lerp, linspace
+from goofer_tpu_torch.ops.interp import gather_lerp
 from goofer_tpu_torch.ops.jitter import volume_jitter
 from goofer_tpu_torch.ops.scan_iir import dynamic_butter_filter
 
@@ -136,53 +142,15 @@ def default_scalars() -> dict:
     }
 
 
-FORMANT_BELL_SIGMAS = (100.0, 200.0, 350.0, 500.0)
 ARRAY_KEYS = ("env_cut", "f0_cut", "mask_cut", "env_pos0", "env_pos1",
               "env_w", "vel_env_pos", "tracks", "tracks_raw", "pitch_ticks")
 # a note's random streams, columns of its key row: the main and the sa
 # synthesis passes' streams, then the sj layer's pitch noise.  The su and
 # sj passes draw nothing (no noise stems, no jitter).
-KEYS_MAIN = slice(0, SYNTH_STREAMS)
-KEYS_SA = slice(SYNTH_STREAMS, 2 * SYNTH_STREAMS)
-KEY_GROWL = 2 * SYNTH_STREAMS
-NOTE_STREAMS = 2 * SYNTH_STREAMS + 1
-
-
-def _strength_gain(n_bins, tracks, strengths, sr):
-    """Formant strength bells (ref: SillySampler.py:791-833) from tracks
-    (B, 4, T) and strengths (B, 4); zero strength is exactly unity gain."""
-    freqs = linspace(0.0, sr / 2.0, n_bins, tracks.device)[:, None]
-    gain = torch.ones(tracks.shape[0], n_bins, tracks.shape[-1],
-                      device=tracks.device)
-    for k in range(4):
-        fk = tracks[:, k, None, :]
-        ok = torch.isfinite(fk) & (fk > 50.0) & (fk < sr * 0.5)
-        w = torch.exp(-0.5 * ((freqs - fk) / FORMANT_BELL_SIGMAS[k]) ** 2)
-        gain = gain * (1.0 + strengths[:, k, None, None] * w * ok)
-    return gain
-
-
-def _tilt(env, brightness_env, sr):
-    """Brightness tilt (ref: SillySampler.py:503-515)."""
-    n_bins = env.shape[-2]
-    freqs = np.linspace(1e-6, sr * 0.5, n_bins, dtype=np.float32)
-    norm_f = torch.as_tensor(np.clip(freqs / (sr * 0.5), 0.02, 1.0),
-                             device=env.device)
-    alpha = torch.clamp(brightness_env - 1.0, -0.9, 1.0)[:, None]
-    tilt = norm_f ** alpha
-    tilt = tilt / (torch.mean(tilt, dim=-1, keepdim=True) + 1e-12)
-    return env * tilt[:, :, None]
-
-
-def _fw_warp(env, amount):
-    """Formant width warp (ref: SillySampler.py:554-574): a row
-    resample, the warp positions depend only on the note and the bin."""
-    n_bins = env.shape[-2]
-    bins = torch.arange(n_bins, dtype=torch.float32, device=env.device)
-    center = n_bins / 2.0
-    pos = torch.clamp((bins - center) * (1.0 + amount[:, None]) + center,
-                      0.0, n_bins - 1.0)
-    return gather_lerp(env, pos, axis=-2)
+KEYS_MAIN = slice(0, RENDER_STREAMS)
+KEYS_SA = slice(RENDER_STREAMS, 2 * RENDER_STREAMS)
+KEY_GROWL = 2 * RENDER_STREAMS
+NOTE_STREAMS = 2 * RENDER_STREAMS + 1
 
 
 def _apply_plan(src, pos0, pos1, w):
@@ -332,19 +300,19 @@ def render_note_core(rs: RenderStatic,
 
     env = env_cut.float()
     if rs.tilt_on:
-        env = _tilt(env, sc["brightness_env"], sr)
+        env = brightness_tilt(env, sc["brightness_env"], sr)
     if rs.shape_amt != 0.0:
         env = env_shape(env, rs.shape_amt)
     if rs.fw_on:
-        env = _fw_warp(env, sc["fw_amount"])
+        env = formant_width_warp(env, sc["fw_amount"])
 
     env_new = _apply_plan(env, env_pos0, env_pos1, env_w)
     if rs.vel_on:
         env_new = gather_lerp(env_new, vel_env_pos, axis=-1)
 
     if rs.strengths_on:
-        env_new = env_new * _strength_gain(env_new.shape[-2], tracks,
-                                           sc["formant_strengths"], sr)
+        env_new = env_new * formant_strength_gain(
+            env_new.shape[-2:], tracks, sc["formant_strengths"], sr)
 
     # pd: pitch-driven dynamics (ref: SillySampler.py:857-881); only the
     # 95th-percentile scale ``pd_ref`` comes from the host
@@ -365,11 +333,17 @@ def render_note_core(rs: RenderStatic,
         env_new = fry_env_shift(env_new, fry_frame_w, 0.92)
 
     # ---- main synthesis ----------------------------------------------
+    # the sg layer: one octave up under a 75 Hz, depth-3 vibrato faded in
+    # over 10 ms (goofer_tpu/sampler/render_core.py:386-416)
     st_main = SynthStatic(
         sr=sr, n_fft=n_fft, hop=hop, n=n,
         f0_jitter=rs.f0_jitter,
         volume_jitter=rs.volume_jitter,
         add_subharm=rs.add_subharm,
+        subharm_semitones=(12.0,),
+        subharm_vibrato=True,
+        subharm_vibrato_delay=0.01,
+        cut_subharm_below_f0=True,
         warp_formants=rs.warp_formants,
         formant_shift_on=rs.formant_shift_on,
         max_overlap=rs.max_overlap,
@@ -386,6 +360,8 @@ def render_note_core(rs: RenderStatic,
         "volume_jitter_strength_harm": sc["volume_jitter_strength"],
         "volume_jitter_strength_breath": sc["volume_jitter_strength"] * 2,
         "subharm_weight": sc["subharm_weight"],
+        "subharm_vibrato_rate": 75.0,
+        "subharm_vibrato_depth": 3.0,
         "normalize": sc["normalize"],
         "n_true": sc["n_true"],
     }

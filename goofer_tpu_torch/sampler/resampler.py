@@ -198,6 +198,24 @@ def _feature_path(in_file: Path) -> Path:
 # take an entry away mid-use
 _decoded_lock = threading.Lock()
 _decoded_cache: dict = {}
+# one lock per fresh source (taken under _decoded_lock): concurrent
+# requests for a source without a cache extract it once, and the rest
+# load the cache that extraction wrote
+_extract_locks: dict = {}
+
+
+def _extract_and_save(in_file: Path, feat: Path, n_fft: int, hop: int,
+                      device: torch.device):
+    from goofer_tpu_torch.analysis.features import extract_features
+    from goofer_tpu_torch.io.goofy import save_features_atomic
+    from goofer_tpu_torch.utils.audio_io import read_wav_mono
+
+    log.info("Extracting features")
+    y, sr = read_wav_mono(in_file)
+    env, f0i, vmask, forms, knots = extract_features(
+        y, sr, n_fft=n_fft, hop_length=hop, device=device)
+    save_features_atomic(feat, knots, f0i, vmask, forms, sr, len(y))
+    return np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, len(y)
 
 
 def acquire_features(in_file: Path, n_fft: int, hop: int,
@@ -209,20 +227,19 @@ def acquire_features(in_file: Path, n_fft: int, hop: int,
 
     Decoded features are memoized on (path, mtime, n_fft, hop): repeated
     phrase plans against one source skip the parse and the decode and get
-    the SAME tuple, which the phrase planner's memo keys on."""
+    the SAME tuple, which the phrase planner's memo keys on.
+
+    Thread-safe: of concurrent requests for one source without a cache,
+    one extracts it and writes the ``.goofy`` atomically while the others
+    wait, then load it."""
     in_file = Path(in_file)
     feat = _feature_path(in_file)
     if not feat.exists():
-        from goofer_tpu_torch.analysis.features import extract_features
-        from goofer_tpu_torch.io.goofy import save_features
-        from goofer_tpu_torch.utils.audio_io import read_wav_mono
-
-        log.info("Extracting features")
-        y, sr = read_wav_mono(in_file)
-        env, f0i, vmask, forms, knots = extract_features(
-            y, sr, n_fft=n_fft, hop_length=hop, device=device)
-        save_features(feat, knots, f0i, vmask, forms, sr, len(y))
-        return np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, len(y)
+        with _decoded_lock:
+            lock = _extract_locks.setdefault(str(feat), threading.Lock())
+        with lock:
+            if not feat.exists():
+                return _extract_and_save(in_file, feat, n_fft, hop, device)
     ck = (str(feat), feat.stat().st_mtime_ns, n_fft, hop)
     with _decoded_lock:
         hit = _decoded_cache.get(ck)

@@ -40,7 +40,14 @@ def read_wav_mono(path) -> tuple[np.ndarray, int]:
 
 
 def write_wav(path, data: np.ndarray, sr: int) -> None:
-    """Write audio as 16-bit PCM WAV (soundfile's default subtype)."""
+    """Write audio as 16-bit PCM WAV (soundfile's default subtype).
+
+    Float input is quantized; int16 input (the PCM of
+    ``render_phrase(..., pcm16=True)``) is written as it is."""
+    data = np.asarray(data)
+    if data.dtype == np.int16:
+        wavfile.write(str(path), int(sr), data)
+        return
     clipped = np.clip(np.asarray(data, dtype=np.float64), -1.0,
                       32767.0 / 32768.0)
     pcm = np.round(clipped * 32768.0).astype(np.int16)

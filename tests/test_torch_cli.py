@@ -56,8 +56,18 @@ def test_cli_render_reversed_with_velocity(src):
     assert sr == 44100 and np.isfinite(y).all() and np.abs(y).max() > 0.1
 
 
-def test_cli_unported_modes_and_errors(src, tmp_path):
-    assert cli.main([]) == 1                                  # server
+def test_cli_unported_modes_and_errors(src, tmp_path, monkeypatch):
+    from goofer_tpu_torch.sampler import server
+
+    served = []
+    monkeypatch.setattr(server, "run", lambda: served.append(1))
+    assert cli.main([]) == 0 and served == [1]                # server
+
+    def bad_args():
+        raise TypeError("bad")
+
+    monkeypatch.setattr(server, "run", bad_args)
+    assert cli.main([]) == 0                                  # help
     assert cli.main([str(tmp_path / "a.goofy")]) == 1        # editor
     assert cli.main([str(src), "out.wav", "C4"]) == 1         # too few
     assert cli.main([str(tmp_path / "nowhere")]) == 1         # no such path

@@ -33,6 +33,7 @@ from chip_smoke import (  # noqa: E402
     _formants_close,
     cascade_cases,
     exact_phase_plain,
+    facade_pulse_cases,
     f0_with_onsets,
     kernel_edges,
     knot_steps,
@@ -47,7 +48,8 @@ from chip_smoke import (  # noqa: E402
     voicebank_cuts,
 )
 from goofer_tpu_torch.analysis import features, formants, pitch  # noqa: E402
-from goofer_tpu_torch.ops import pulse, scan_iir  # noqa: E402
+from goofer_tpu_torch.ops import jitter, pulse, scan_iir  # noqa: E402
+from goofer_tpu_torch.ops import noise as rnd  # noqa: E402
 from goofer_tpu_torch.ops.cuda import cascade_kernel, pulse_kernel  # noqa: E402
 from goofer_tpu_torch.ops.cuda.burg_kernel import burg_lpc  # noqa: E402
 from goofer_tpu_torch.ops.cuda.lpc_roots_kernel import lpc_roots  # noqa: E402
@@ -597,3 +599,52 @@ def test_batch_of_64_files_equals_each_alone(dev):
         assert k_b.shape == k_a.shape, i
         assert knot_steps(k_a, k_b) <= 1.001, i
         _formants_close(f"file {i}", row[3], alone[3])
+
+
+@pytest.mark.parametrize("name", ["facade_main", "facade_sub_p12"])
+def test_pulse_kernel_facade_densest(dev, name):
+    """The facade's densest pulse passes (f0 x 2 under the default f0
+    jitter, and the +12 semitone on its vibrato track) with the table
+    bounds models/hnm.pulse_bounds derives, off phase ties."""
+    _, f0_np, gate_np, k, spacing = next(c for c in facade_pulse_cases()
+                                         if c[0] == name)
+    f0 = torch.as_tensor(f0_np, device=dev)
+    gate = None if gate_np is None else torch.as_tensor(gate_np, device=dev)
+    _hold_pulse_to_plain(f0, gate, pulse_pass_args(
+        f0_np, gate is not None, k, spacing))
+
+
+@pytest.mark.parametrize("n", [44100, 262144])
+def test_one_pole_highpass_on_card(dev, n):
+    """vocal_roughness's static high-pass through the cascade kernel (one
+    launch) against the CPU's plain scan, 1e-4 x max|x|."""
+    x = torch.as_tensor(np.random.default_rng(n).standard_normal(
+        (2, n)).astype(np.float32))
+    before = one_pole_cascade.launches
+    got = scan_iir.one_pole_highpass(x.to(dev), SR, 320.0)
+    torch.cuda.synchronize()
+    assert one_pole_cascade.launches == before + 1
+    want = scan_iir.one_pole_highpass(x, SR, 320.0)
+    torch.testing.assert_close(got.cpu(), want, rtol=0.0,
+                               atol=CASCADE_TOL * float(x.abs().max()))
+
+
+def test_vocal_roughness_card_vs_cpu(dev):
+    """The same keys draw the same noise on both devices: the card's
+    roughness equals the CPU's to 1e-3 x peak (blur and phase rounding)."""
+    n = 44100
+    t = np.arange(n) / SR
+    f0 = (180.0 * 2 ** (0.3 * np.sin(2 * np.pi * 3.1 * t))).astype(
+        np.float32)
+    f0[n // 3: n // 2] = 0.0
+    y = pulse.pulse_train(torch.as_tensor(f0)[None], SR)
+    y = torch.cat([y, 0.5 * y])
+    mask = (torch.as_tensor(f0) > 0).float()
+    keys = torch.as_tensor(rnd.stream_keys([0, 1], 1)[:, 0])
+    want = jitter.vocal_roughness(keys, y, torch.as_tensor(f0), mask, SR)
+    got = jitter.vocal_roughness(keys.to(dev), y.to(dev),
+                                 torch.as_tensor(f0, device=dev),
+                                 mask.to(dev), SR).cpu()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0.0,
+                               atol=1e-3 * float(want.abs().max()))

@@ -32,6 +32,9 @@ def test_port_imports_no_jax():
         "import goofer_tpu_torch.ops.cuda.viterbi_kernel\n"
         "import goofer_tpu_torch.ops.cuda.lpc_roots_kernel\n"
         "import goofer_tpu_torch.ops.cuda.burg_kernel\n"
+        "import goofer_tpu_torch.sampler.server\n"
+        "import goofer_tpu_torch.sampler.manifest\n"
+        "import goofer_tpu_torch.models.hnm, goofer_tpu_torch.compat\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'goofer_tpu'))\n"
