@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits nonzero):
 2. build the hand-written CUDA kernels (csrc/pulse_accumulate.cu,
    csrc/one_pole_cascade.cu, csrc/pitch_viterbi.cu, csrc/lpc_roots.cu and
    csrc/burg_lpc.cu), one nvcc each, started together, into
-   build/goofer_tpu_torch/ and print the build time;
+   build/goofer_tpu_torch/ and print the build time; beside them g++
+   builds the host audio codecs (csrc/wavcodec.cpp, csrc/sndcodec.cpp,
+   goofer_tpu_torch.native), whose build time is printed too;
 3. check the pulse kernel (the whole pulse pass: f0 in, pulse train out)
    against its plain PyTorch version on the card at the note render's
    shapes (B=1 and B=8 at n=40000, the longest note's n=48510, onsets at
@@ -107,8 +109,27 @@ Phases (any failure raises and the script exits nonzero):
    the pulse and cascade checks of steps 3-4 include the facade's densest
    passes (f0 x 2 under the default jitter, +12 semitones with vibrato,
    its derived table bounds) and its roughness high-pass;
-17. print the phrases, analysis, server, facade and kernels summaries as
-   one JSON line each, then the device line.
+17. the voicing editor: Play's preview synthesis of the voice source's
+   first 2 s (editor/gui.py:_preview_synthesis; launches per preview, warm
+   ms as the median of 7 after 2, card vs CPU within 0.1 dB LSD); SE1
+   through cli.main on the heavy note with the editor hook replaced by a
+   scripted one that paints the snippet's first half unvoiced (the hook
+   runs once, the .goofy's mask changes there and nowhere else, the
+   source's cached renders are deleted, the output equals at int16 the
+   plain render of the edited .goofy at the same seed); the .goofy batch
+   mode (edit_goofy_files) on the knot-mode .goofy with tkinter replaced
+   by tests/fake_tk.py: decoded and previewed on the card, edit written;
+   prints the editor: line;
+18. the native codecs: the voice source written as 16-bit FLAC and AIFF
+   (and MP3 where libmpg123 and libmp3lame load; the line says which), the
+   heavy note rendered on the card from each in a directory without a
+   cache (decode, extraction, render), FLAC and AIFF equal at int16 to the
+   note from the WAV; a folder of wav + flac + aiff copies extracted
+   through cli.main (three .goofy files with equal features, one launch of
+   each analysis kernel); host ms to decode each format; prints the
+   codec: line;
+19. print the phrases, analysis, server, facade, editor, codec and
+   kernels summaries as one JSON line each, then the device line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
 launches between one pair of CUDA events, enqueued behind a spin kernel
@@ -133,15 +154,17 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from goofer_tpu_torch import cli, compat, config
+from goofer_tpu_torch import cli, compat, config, native
 from goofer_tpu_torch.analysis import features, formants, pitch
+from goofer_tpu_torch.editor import gui
 from goofer_tpu_torch.engine import synth
-from goofer_tpu_torch.io.goofy import load_features
+from goofer_tpu_torch.io.goofy import formants_to_int_keys, load_features
 from goofer_tpu_torch.models import hnm
 from goofer_tpu_torch.ops import envelope, jitter, noise, pulse, scan_iir
 from goofer_tpu_torch.ops.cuda import (
@@ -239,6 +262,10 @@ FACADE_OPTIONS = dict(
 # one launch of the pulse kernel for the main pass and one per semitone;
 # one of the cascade kernel for the roughness high-pass
 FACADE_PULSE_LAUNCHES = 3
+# the editor's Play: a span of the voice source, held card vs CPU (the
+# noise is counter-based, the same draws on both devices)
+EDITOR_SPAN_S = 2.0
+PREVIEW_LSD_DB = 0.1
 FACADE_CASCADE_LAUNCHES = 1
 # launches per kernel timing; the plain versions run tens to thousands of
 # small ops per call and get fewer
@@ -2061,6 +2088,337 @@ def facade_slice() -> dict:
     return out
 
 
+def preview_inputs(dev: str):
+    """The voice source's first EDITOR_SPAN_S seconds as the editor's Play
+    hands them to the preview: the envelope decoded on ``dev`` and
+    sliced, with f0, mask and formants, at the default hop."""
+    pack, f0, mask, forms, _, _ = load_features(
+        REPO / "tests" / "golden" / "voice" / "src_features.goofy")
+    knots = torch.as_tensor(np.asarray(pack["knot_vals_log"], np.float32),
+                            device=dev)
+    env = envelope.decode_env_from_knots(knots, pack["sr"], pack["n_fft"],
+                                         pack["n_bins"]).cpu().numpy()
+    b = int(EDITOR_SPAN_S * SR)
+    frames = slice(0, max(1, -(-b // HOP)))
+    forms = {k: np.asarray(v)[frames]
+             for k, v in formants_to_int_keys(forms).items()}
+    return env[:, frames], np.asarray(f0[:b]), np.asarray(mask[:b]), forms
+
+
+def _scripted_hook(calls):
+    """An SE1 editor hook that paints the snippet's first half unvoiced."""
+    def hook(y_snip, sr, init_mask):
+        calls.append((len(y_snip), sr, len(init_mask)))
+        edited = np.asarray(init_mask, np.float32).copy()
+        edited[: len(edited) // 2] = 0.0
+        return edited
+    return hook
+
+
+def se1_round_trip(tmp: Path, dev: str) -> dict:
+    """SE1 through cli.main on the card: the heavy note with SE1 on a copy
+    of the voice source, gui.available_interactive_hook replaced by a
+    scripted hook.  The hook runs once, the .goofy's mask changes in the
+    snippet's first half and nowhere else, the source's cached renders go,
+    and the output equals at int16 the plain render of the edited .goofy
+    at the same seed."""
+    bank, cache, plain = tmp / "se_bank", tmp / "se_cache", tmp / "se_plain"
+    for d in (bank, cache, plain):
+        d.mkdir()
+    voice = REPO / "tests" / "golden" / "voice"
+    shutil.copy(voice / "src.wav", bank / "v.wav")
+    shutil.copy(voice / "src_features.goofy", bank / "v_features.goofy")
+    for name in ("v_1.wav", "v_2.wav", "other.wav"):
+        (cache / name).write_bytes(b"stale")
+    feat = bank / "v_features.goofy"
+    before = np.asarray(load_features(feat)[2])
+    _, *args = HEAVY
+    args = [str(a) for a in args]
+    args[2] = "SE1" + args[2]
+    calls = []
+    real = gui.available_interactive_hook
+    gui.available_interactive_hook = lambda: _scripted_hook(calls)
+    os.environ[config.DEVICE_ENV] = dev
+    pulse_kernel.pulse_accumulate.launches = 0
+    cascade_kernel.one_pole_cascade.launches = 0
+    try:
+        rc = cli.main([str(bank / "v.wav"), str(cache / "out.wav")] + args)
+    finally:
+        gui.available_interactive_hook = real
+    launches = _launches()
+    if rc != 0 or len(calls) != 1:
+        raise AssertionError(f"SE1: cli rc {rc}, the hook ran {len(calls)} "
+                             "times")
+    n_snip, sr, n_mask = calls[0]
+    mask = np.asarray(load_features(feat)[2])
+    changed = np.flatnonzero(mask != before)
+    start = int(HEAVY[4] / 1000 * SR)        # the cut's first sample
+    if (not changed.size or np.any(mask[changed] != 0.0)
+            or changed.min() < start or changed.max() >= start + n_mask // 2
+            or sr != SR or n_snip != n_mask):
+        raise AssertionError(f"SE1: the mask changed at samples "
+                             f"{changed.min() if changed.size else None}-"
+                             f"{changed.max() if changed.size else None}, "
+                             f"expected inside [{start}, "
+                             f"{start + n_mask // 2})")
+    left = sorted(p.name for p in cache.iterdir())
+    if left != ["other.wav", "out.wav"]:
+        raise AssertionError(f"SE1: the cache holds {left} after the edit")
+    shutil.copy(feat, plain / "v_features.goofy")
+    GooferResampler(plain / "v.wav", plain / "want.wav", *args, seed=0,
+                    device=dev)
+    got = read_pcm(cache / "out.wav")
+    want = read_pcm(plain / "want.wav")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("SE1: the render differs from the plain render "
+                             "of the edited .goofy")
+    return {"snippet_samples": n_snip, "painted_unvoiced": int(changed.size),
+            "pulse_launches": launches[0], "cascade_launches": launches[1]}
+
+
+def edit_goofy_on_card(tmp: Path, dev: str) -> dict:
+    """gui.edit_goofy_files on a knot-mode .goofy with no audio beside it
+    on the card, tkinter replaced by tests/fake_tk.py with a scripted
+    paint and Apply: the envelope decodes on the card, the window shows
+    the preview synthesis (a pulse launch) and the edit is written."""
+    from tests import fake_tk
+
+    d = tmp / "goofy_edit"
+    d.mkdir()
+    feat = d / "v_features.goofy"
+    shutil.copy(REPO / "tests" / "golden" / "voice" / "src_features.goofy",
+                feat)
+    n = int(load_features(feat)[5])
+
+    def scenario(win):
+        canvas = fake_tk.find_all(win, fake_tk.Canvas)[0]
+        canvas.fire("<Button-3>", x=0)
+        canvas.fire("<B3-Motion>", x=399)
+        canvas.fire("<ButtonRelease-3>")
+        fake_tk.find_button(win, "Apply").invoke()
+
+    saved = {m: sys.modules.get(m) for m in ("tkinter", "tkinter.ttk")}
+    fake_tk.reset()
+    sys.modules["tkinter"] = fake_tk
+    sys.modules["tkinter.ttk"] = fake_tk.ttk
+    fake_tk.push_scenario(scenario)
+    pulse_kernel.pulse_accumulate.launches = 0
+    try:
+        gui.edit_goofy_files([str(feat)], device=dev)
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    launches = pulse_kernel.pulse_accumulate.launches
+    _, f0, mask, _, _, ylen = load_features(feat)
+    b = int(399 / 800 * n) + 1
+    if (ylen != n or launches < 1 or np.any(np.asarray(mask[:b]) != 0)
+            or np.any(np.asarray(f0[:b]) != 0)
+            or fake_tk.SCENARIOS):
+        raise AssertionError(f"edit_goofy_files: {launches} pulse launches, "
+                             f"mask[:{b}] not all unvoiced or the scenario "
+                             "did not run")
+    return {"pulse_launches": launches, "painted_unvoiced": b}
+
+
+def editor_slice(tmp: Path, dev: str = "cuda") -> dict:
+    """Drive the editor on the card (``dev``): Play's preview synthesis of
+    a 2 s span of the voice source (launches per preview, warm ms, card vs
+    CPU), SE1 through the CLI and the .goofy batch mode.  Returns the
+    numbers, with the path's launches under "launches"."""
+    env, f0, mask, forms = preview_inputs(dev)
+
+    def preview(device):
+        return gui._preview_synthesis(env, f0, mask, forms, SR, N_FFT, HOP,
+                                      device=device)
+
+    preview(dev)
+    pulse_kernel.pulse_accumulate.launches = 0
+    cascade_kernel.one_pole_cascade.launches = 0
+    card = preview(dev)
+    launches = _launches()
+    if launches[0] < 1:
+        raise AssertionError("editor preview: no pulse launch")
+    warm_ms = _median_ms(lambda: preview(dev), 7)
+    cpu = preview("cpu")
+    if card.shape != (len(mask),) or not np.isfinite(card).all():
+        raise AssertionError(f"editor preview: shape {card.shape} or "
+                             "non-finite")
+    lsd = lsd_db(card, cpu, SR)
+    if not lsd <= PREVIEW_LSD_DB:
+        raise AssertionError(f"editor preview card vs CPU: LSD {lsd} dB over "
+                             f"{PREVIEW_LSD_DB}")
+    se1 = se1_round_trip(tmp, dev)
+    edit = edit_goofy_on_card(tmp, dev)
+    out = {"preview_ms": warm_ms, "audio_s": len(mask) / SR,
+           "preview_lsd_card_vs_cpu_db": lsd,
+           "preview_max_diff": float(np.abs(card - cpu).max()),
+           "launches_per_preview": {"pulse": launches[0],
+                                    "cascade": launches[1]},
+           "se1": se1, "edit_goofy_files": edit,
+           "launches": (launches[0] + se1["pulse_launches"]
+                        + edit["pulse_launches"],
+                        launches[1] + se1["cascade_launches"])}
+    print(f"editor: preview of {out['audio_s']:.2f} s warm {warm_ms:.3f} ms "
+          f"(median of 7), launches per preview: pulse {launches[0]} "
+          f"cascade {launches[1]}; card vs CPU LSD {lsd:.4f} dB, max|diff| "
+          f"{out['preview_max_diff']:.3e}; SE1 through the CLI: the hook "
+          f"ran once on {se1['snippet_samples']} samples, "
+          f"{se1['painted_unvoiced']} samples painted unvoiced, stale "
+          f"renders deleted, output equal at int16 to the edited .goofy's "
+          f"render (pulse {se1['pulse_launches']} cascade "
+          f"{se1['cascade_launches']} launches); edit_goofy_files on the "
+          f"knot-mode .goofy: decoded and previewed on the card (pulse "
+          f"{edit['pulse_launches']}), edit written")
+    return out
+
+
+def write_aiff16(path: Path, pcm: np.ndarray, sr: int) -> None:
+    """Mono 16-bit AIFF: FORM, COMM with the rate as an 80-bit extended
+    float, SSND of big-endian samples."""
+    import struct
+
+    e = int(sr).bit_length() - 1
+    rate = struct.pack(">HQ", 16383 + e, int(sr) << (63 - e))
+    comm = struct.pack(">hIh", 1, len(pcm), 16) + rate
+    ssnd = struct.pack(">II", 0, 0) + pcm.astype(">i2").tobytes()
+    body = (b"AIFF" + b"COMM" + struct.pack(">I", len(comm)) + comm
+            + b"SSND" + struct.pack(">I", len(ssnd)) + ssnd)
+    path.write_bytes(b"FORM" + struct.pack(">I", len(body)) + body)
+
+
+def read_pcm(path: Path) -> np.ndarray:
+    from scipy.io import wavfile
+
+    return wavfile.read(path)[1]
+
+
+def codec_slice(tmp: Path, dev: str = "cuda") -> dict:
+    """Drive the native codecs on the card's host: the voice source as
+    16-bit FLAC and AIFF (and MP3 where libmpg123 and libmp3lame load),
+    the heavy note rendered from each in a directory without a cache (the
+    first render decodes, extracts and saves) held at int16 to the render
+    from the WAV, a folder of wav + flac + aiff copies extracted through
+    cli.main (three .goofy files with equal features, one launch of each
+    analysis kernel per chunk) and each format's host decode ms.  Returns
+    the numbers, with the renders' and extraction's launches under
+    "launches" and "analysis_launches"."""
+    import ctypes
+
+    from scipy.io import wavfile
+
+    from tests.flac_writer import write_flac
+
+    sr, pcm = wavfile.read(REPO / "tests" / "golden" / "voice" / "src.wav")
+    writers = {
+        "wav": lambda p: shutil.copy(REPO / "tests" / "golden" / "voice"
+                                     / "src.wav", p),
+        "flac": lambda p: write_flac(p, pcm.astype(np.int64), sr, bps=16,
+                                     blocksize=4096, mode="fixed", order=2),
+        "aiff": lambda p: write_aiff16(p, pcm, sr),
+    }
+    mp3 = "skipped: "
+    try:
+        ctypes.CDLL("libmpg123.so.0")
+        from tests.mp3_writer import write_mp3
+
+        ctypes.CDLL("libmp3lame.so.0")
+        writers["mp3"] = lambda p: write_mp3(p, pcm / 32768.0, sr)
+        mp3 = "ran: libmpg123.so.0 and libmp3lame.so.0 loaded"
+    except OSError as e:
+        mp3 += str(e)
+    os.environ[config.DEVICE_ENV] = dev
+    _, *args = HEAVY
+    args = [str(a) for a in args]
+    decode_ms, renders = {}, {}
+    pulse_kernel.pulse_accumulate.launches = 0
+    cascade_kernel.one_pole_cascade.launches = 0
+    for k in (viterbi_kernel.pitch_viterbi, lpc_roots_kernel.lpc_roots,
+              burg_kernel.burg_lpc):
+        k.launches = 0
+    for fmt, write in writers.items():
+        d = tmp / f"codec_{fmt}"
+        d.mkdir()
+        src = d / f"v.{fmt}"
+        write(src)
+        y, _ = read_wav_mono(src)
+        if fmt != "mp3" and not np.array_equal(y, pcm / 32768.0):
+            raise AssertionError(f"codec: the {fmt} source decodes to other "
+                                 "samples than the WAV")
+        decode_ms[fmt] = statistics.median(
+            host_ms(lambda: read_wav_mono(src)) for _ in range(5))
+        if cli.main([str(src), str(d / "out.wav")] + args) != 0:
+            raise AssertionError(f"codec: the render from {fmt} failed")
+        renders[fmt] = read_pcm(d / "out.wav")
+    launches = _launches()
+    r_launches = _analysis_launches()
+    if min(r_launches) < len(renders):
+        raise AssertionError(f"codec: {len(renders)} fresh sources launched "
+                             f"the analysis kernels {r_launches} times")
+    for fmt in ("flac", "aiff"):
+        if not np.array_equal(renders[fmt], renders["wav"]):
+            raise AssertionError(f"codec: the heavy note from {fmt} differs "
+                                 "from the note from the WAV at int16")
+    if "mp3" in renders and not (np.isfinite(renders["mp3"]).all()
+                                 and np.abs(renders["mp3"]).max() > 1000):
+        raise AssertionError("codec: the heavy note from mp3 is silent")
+
+    folder = tmp / "codec_folder"
+    folder.mkdir()
+    for fmt in ("wav", "flac", "aiff"):
+        writers[fmt](folder / f"v_{fmt}.{fmt}")
+    for k in (viterbi_kernel.pitch_viterbi, lpc_roots_kernel.lpc_roots,
+              burg_kernel.burg_lpc):
+        k.launches = 0
+    if cli.main([str(folder)]) != 0:
+        raise AssertionError("codec: the folder extraction failed")
+    a_launches = _analysis_launches()
+    made = sorted(folder.glob("*_features.goofy"))
+    if len(made) != 3 or list(a_launches) != [1, 1, 1]:
+        raise AssertionError(f"codec folder: {len(made)} .goofy files, "
+                             f"launches {a_launches}; expected 3 files in "
+                             "one chunk")
+    feats = [load_features(p) for p in made]
+    exact = True
+    for p, f in zip(made[1:], feats[1:]):
+        name = f"codec folder {p.name} vs {made[0].name}"
+        for i, track in ((1, "f0"), (2, "mask")):
+            _f16_track_equal(f"{name} ({track})", f[i], feats[0][i])
+            exact &= bool(np.array_equal(f[i], feats[0][i]))
+        k_a, k_b = f[0]["knot_vals_log"], feats[0][0]["knot_vals_log"]
+        if k_a.shape != k_b.shape or knot_steps(k_a, k_b) > 1.001:
+            raise AssertionError(f"{name}: knots differ")
+        exact &= bool(np.array_equal(k_a, k_b))
+        _formants_close(name, f[3], feats[0][3])
+    out = {"decode_host_ms": decode_ms, "mp3": mp3,
+           "render_samples": int(len(renders["wav"])),
+           "folder_features_bit_equal": exact,
+           "render_analysis_launches": r_launches,
+           "launches": launches,
+           "analysis_launches": tuple(a + b for a, b in zip(a_launches,
+                                                            r_launches))}
+    print(f"codec: host decode ms (median of 5) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in decode_ms.items())
+          + f"; heavy note from flac and aiff equal at int16 to the note "
+          f"from the WAV ({len(renders['wav'])} samples; launches over "
+          f"{len(renders)} renders: pulse {launches[0]} cascade "
+          f"{launches[1]}); folder wav + flac + aiff: 3 .goofy, launches "
+          f"Viterbi {a_launches[0]} roots {a_launches[1]} Burg "
+          f"{a_launches[2]}, features bit-equal {exact}; mp3 {mp3}")
+    return out
+
+
+def build_codecs() -> tuple[list[Path], float]:
+    """Build the two host codec libraries (g++), one thread each; returns
+    their paths and the seconds taken."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(native.build, (native.WAV_SRC, native.SND_SRC)))
+    return libs, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2070,11 +2428,16 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    libs = _build.build_all([
-        pulse_kernel.KERNEL, cascade_kernel.KERNEL, viterbi_kernel.KERNEL,
-        lpc_roots_kernel.KERNEL, burg_kernel.KERNEL])
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        codecs = pool.submit(build_codecs)
+        libs = _build.build_all([
+            pulse_kernel.KERNEL, cascade_kernel.KERNEL, viterbi_kernel.KERNEL,
+            lpc_roots_kernel.KERNEL, burg_kernel.KERNEL])
+        codec_libs, codec_s = codecs.result()
     print(f"build {', '.join(p.name for p in libs)}: "
           f"{time.perf_counter() - t0:.2f} s")
+    print(f"codec build {', '.join(p.name for p in codec_libs)} (g++, "
+          f"beside the nvcc builds): {codec_s:.2f} s")
 
     err, p_rows = check_pulse_kernel(_pulse_cases() + phrase_pulse_cases()
                                      + facade_pulse_cases())
@@ -2099,6 +2462,9 @@ def main() -> int:
         analysis = analysis_slice(Path(tmp))
         served = server_slice(Path(tmp))
         facade = facade_slice()
+        edited = editor_slice(Path(tmp))
+        codec = codec_slice(Path(tmp))
+    codec["build_s"] = codec_s
     v_launches, r_launches, b_launches = analysis.pop("launches")
     if min(v_launches, r_launches, b_launches) <= 0:
         raise AssertionError(
@@ -2108,6 +2474,9 @@ def main() -> int:
     sv_launches, sv_c_launches = served.pop("launches")
     fa_launches, fa_c_launches = facade.pop("launches")
     fa_analysis = facade.pop("analysis_launches")
+    ed_launches, ed_c_launches = edited.pop("launches")
+    co_launches, co_c_launches = codec.pop("launches")
+    co_analysis = codec.pop("analysis_launches")
     ph_launches, ph_c_launches = phrases.pop("launches")
     if ph_launches <= 0 or ph_c_launches <= 0:
         raise AssertionError(f"the phrases launched the pulse kernel "
@@ -2140,6 +2509,8 @@ def main() -> int:
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"server": served}))
     print(json.dumps({"facade": facade}))
+    print(json.dumps({"editor": edited}))
+    print(json.dumps({"codec": codec}))
     def per_chunk(n_launches):
         return {"launches_per_chunk": n_launches / analysis["chunks"],
                 "chunks": analysis["chunks"],
@@ -2159,9 +2530,10 @@ def main() -> int:
                 "scans of max-plus matrices; here the sequential solve "
                 "with a backtrace, one CTA per file, the transition costs "
                 "computed ahead of the chain",
-        "launches": v_launches + fa_analysis[0],
+        "launches": v_launches + fa_analysis[0] + co_analysis[0],
         "launches_folder_path": v_launches,
         "launches_facade_path": fa_analysis[0],
+        "launches_codec_path": co_analysis[0],
         **per_chunk(v_launches),
         "max_abs_err": v_err,
         "path_frames_differing": v_bad,
@@ -2185,9 +2557,10 @@ def main() -> int:
         "note": "replaces non-Pallas JAX code: _poly_roots_dk's fori_loop "
                 "of 60 Durand-Kerner iterations; floor(32 / order) "
                 "frames per warp, a root per lane",
-        "launches": r_launches + fa_analysis[1],
+        "launches": r_launches + fa_analysis[1] + co_analysis[1],
         "launches_folder_path": r_launches,
         "launches_facade_path": fa_analysis[1],
+        "launches_codec_path": co_analysis[1],
         **per_chunk(r_launches),
         "max_abs_err": r_err,
         "ms": r_ms,
@@ -2213,9 +2586,10 @@ def main() -> int:
                 "over the order; one warp per frame, each lane's "
                 "stretch of the errors in registers (shared memory past "
                 "1152 samples)",
-        "launches": b_launches + fa_analysis[2],
+        "launches": b_launches + fa_analysis[2] + co_analysis[2],
         "launches_folder_path": b_launches,
         "launches_facade_path": fa_analysis[2],
+        "launches_codec_path": co_analysis[2],
         **per_chunk(b_launches),
         "max_abs_err": b_err,
         "ms": b_ms,
@@ -2240,12 +2614,17 @@ def main() -> int:
                 "pulse train out: phase scan, onsets and onset tables "
                 "(goofer_tpu/ops/pulse.py:109, :84, :170) and the "
                 "K-bounded LF accumulation of the Pallas kernel",
-        "launches": launches + ph_launches + sv_launches + fa_launches,
+        "launches": (launches + ph_launches + sv_launches + fa_launches
+                     + ed_launches + co_launches),
         "launches_note_path": launches,
         "launches_phrase_path": ph_launches,
         "launches_server_path": sv_launches,
         "launches_per_server_burst": sv_launches / SERVER_BURST_REPS,
         "launches_per_facade_call": fa_launches,
+        "launches_editor_path": ed_launches,
+        "launches_per_editor_preview": edited["launches_per_preview"][
+            "pulse"],
+        "launches_codec_path": co_launches,
         "launches_per_phrase": {k: v["pulse_launches"]
                                 for k, v in phrases.items()},
         "launches_per_heavy_note": heavy[0],
@@ -2271,12 +2650,14 @@ def main() -> int:
         "note": "replaces non-Pallas JAX code: first_order_recurrence_pos, "
                 "the stage solver of dynamic_one_pole_cascade",
         "launches": (c_launches + ph_c_launches + sv_c_launches
-                     + fa_c_launches),
+                     + fa_c_launches + ed_c_launches + co_c_launches),
         "launches_note_path": c_launches,
         "launches_phrase_path": ph_c_launches,
         "launches_server_path": sv_c_launches,
         "launches_per_server_burst": sv_c_launches / SERVER_BURST_REPS,
         "launches_per_facade_call": fa_c_launches,
+        "launches_editor_path": ed_c_launches,
+        "launches_codec_path": co_c_launches,
         "launches_per_phrase": {k: v["cascade_launches"]
                                 for k, v in phrases.items()},
         "launches_per_heavy_note": heavy[1],

@@ -1,17 +1,18 @@
 """SillySampler-compatible CLI (ref: SillySampler.py:1226-1275).
 
-Port of goofer_tpu/cli.py.  Three modes:
+Port of goofer_tpu/cli.py.  Four modes, selected as the reference does:
 
 * no arguments: the HTTP resampler server on :8572 (sampler/server.py);
+* every argument a ``.goofy``: the voicing editor's batch mode
+  (editor/gui.py:edit_goofy_files), one window per file;
+* one argument, an existing folder or audio file (WAV, FLAC, AIFF or
+  MP3): extract and cache the features of every audio file under it;
 * 13 arguments: render one note (a source without a ``.goofy`` cache is
-  analysed first and the cache saved beside it);
-* one argument, an existing folder or audio file: extract and cache the
-  features of every audio file under it.
+  analysed first and the cache saved beside it); ``SE1`` opens the
+  voicing editor mid-render when a display exists.
 
 All run on CUDA unless $GOOFER_TPU_TORCH_DEVICE names another device;
-without CUDA they fail rather than falling back.  The JAX CLI's
-voicing-editor batch mode (every argument a ``.goofy``) is not ported yet
-and exits with rc 1.
+without CUDA they fail rather than falling back.
 """
 from __future__ import annotations
 
@@ -31,17 +32,13 @@ HELP_STRING = (
     "           offset(ms) length(ms) consonant(ms) cutoff(ms)\n"
     "           volume(%) modulation(%) !tempo pitch_string\n"
     "  python -m goofer_tpu_torch.cli <folder or audio file>   "
-    "(extract features)\n\n"
+    "(extract features)\n"
+    "  python -m goofer_tpu_torch.cli a.goofy [b.goofy ...]    "
+    "(voicing editor)\n\n"
     "Example:\n"
     "  python -m goofer_tpu_torch.cli in.wav out.wav C4 100 g0 0 1000 0 "
     "700 100 0 !120 AA"
 )
-
-
-def _unported_mode(argv) -> str | None:
-    if argv and all(Path(a).suffix.lower() == ".goofy" for a in argv):
-        return "voicing-editor mode"
-    return None
 
 
 def main(argv=None) -> int:
@@ -59,12 +56,16 @@ def main(argv=None) -> int:
             log.exception("Server failed")
             return 1
         return 0
-    mode = _unported_mode(argv)
-    if mode is not None:
-        log.error("%s is not yet ported to goofer_tpu_torch; use "
-                  "goofer_tpu.cli", mode)
-        return 1
     log.info("Args: %s (count=%d)", argv, len(argv))
+    if all(Path(a).suffix.lower() == ".goofy" for a in argv):
+        from goofer_tpu_torch.editor import gui
+
+        try:
+            gui.edit_goofy_files(argv)
+        except Exception:
+            log.exception("Failed to edit")
+            return 1
+        return 0
     if len(argv) == 1 and Path(argv[0]).exists():
         from goofer_tpu_torch.sampler.batch_extract import (
             extract_features_recursive,
@@ -83,10 +84,14 @@ def main(argv=None) -> int:
                   "%d", len(argv))
         log.error(HELP_STRING)
         return 1
+    from goofer_tpu_torch.editor import gui
     from goofer_tpu_torch.sampler.resampler import GooferResampler
 
     try:
-        GooferResampler(*argv[:13])
+        # SE1 blocks on the voicing editor mid-render like the reference
+        # (SillySampler.py:581-611) whenever a display is available
+        GooferResampler(*argv[:13],
+                        editor_hook=gui.available_interactive_hook())
     except Exception:
         log.exception("Failed to render")
         return 1

@@ -1,10 +1,12 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface at first use, into
 ``build/goofer_tpu_torch/`` beside the package, and loaded with
-``ctypes``.  A library's name carries a hash of its source and flags, so
-an edited source is rebuilt and never served stale.
+``ctypes``; the host C++ audio codecs (``csrc/*.cpp``, see
+goofer_tpu_torch.native) are built the same way by ``g++``.  A library's
+name carries a hash of its source and flags, so an edited source is
+rebuilt and never served stale.
 """
 from __future__ import annotations
 
@@ -35,6 +37,40 @@ def find_nvcc() -> str:
                        "the kernels in goofer_tpu_torch/csrc")
 
 
+def library_path(source: Path, flags) -> Path:
+    """``build/goofer_tpu_torch/lib<stem>-<hash of source and flags>.so``."""
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+
+
+def build_library(source: Path, flags, find_compiler) -> Path:
+    """Compile ``source`` with ``find_compiler()`` and ``flags`` unless its
+    build exists; returns the library's path.  The library is written
+    through a temporary file and ``os.replace``, so that concurrent
+    builders never load a half-written one; raises with the compiler's
+    output if compilation fails."""
+    out = library_path(source, flags)
+    if out.exists():
+        return out
+    compiler = find_compiler()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{Path(compiler).name} failed ({proc.returncode}) on "
+                f"{source}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
 class Kernel:
     """One ``csrc/<name>.cu`` library: ``build()`` compiles it unless this
     source's build exists; ``load()`` opens it once per process and
@@ -51,35 +87,10 @@ class Kernel:
     def source(self) -> Path:
         return CSRC / f"{self.name}.cu"
 
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes()
-            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
-
     def build(self) -> Path:
         """Returns the library's path; raises with nvcc's output if
         compilation fails."""
-        out = self.library_path()
-        if out.exists():
-            return out
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {self.source}:\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return out
+        return build_library(self.source, NVCC_FLAGS, find_nvcc)
 
     def function(self):
         """The loaded C entry point, building the library if needed."""

@@ -8,7 +8,8 @@ runs as PyTorch on the chosen device.
 
 Features come from the source's ``.goofy`` cache, which the first render
 of a source extracts and saves (analysis/features.py); every flag of the
-13-argument CLI renders.
+13-argument CLI renders, and ``SE1`` runs the voicing editor's hook on
+the note's snippet and writes the edit back into the ``.goofy``.
 """
 from __future__ import annotations
 
@@ -193,6 +194,35 @@ def _feature_path(in_file: Path) -> Path:
     return in_file.with_name(f"{in_file.stem}_features.goofy")
 
 
+def _src_tag(feat_path: str) -> str:
+    stem = Path(feat_path).name
+    if stem.endswith("_features.goofy"):
+        return stem[: -len("_features.goofy")]
+    return Path(feat_path).stem
+
+
+def invalidate_render_cache(out_path: str, feat_path: str) -> None:
+    """Delete cached renders for a source after a voicing edit
+    (ref: SillySampler.py:23-41)."""
+    try:
+        out_dir = Path(out_path).parent
+        tag = _src_tag(feat_path)
+        for p in out_dir.glob(f"{tag}*.wav"):
+            try:
+                p.unlink()
+                log.info("[SE] Invalidated cache: %s", p.name)
+            except Exception as e:  # pragma: no cover
+                log.warning("[SE] Could not delete %s: %s", p, e)
+        for ext in ("json", "txt", "lock"):
+            for p in out_dir.glob(f"{tag}*.{ext}"):
+                try:
+                    p.unlink()
+                except Exception:  # pragma: no cover
+                    pass
+    except Exception as e:  # pragma: no cover
+        log.warning("[SE] Cache invalidate failed: %s", e)
+
+
 # get/insert under a lock: phrase plans may run on several threads, and
 # readers hold their own reference, so the clear-when-full sweep cannot
 # take an entry away mid-use
@@ -260,24 +290,36 @@ def acquire_features(in_file: Path, n_fft: int, hop: int,
     return out
 
 
+def forget_features(feat: Path) -> None:
+    """Drop a ``.goofy``'s memoized decodes after it was rewritten: a
+    rewrite within one mtime tick of a coarse filesystem would otherwise
+    serve the old voicing to the next note."""
+    with _decoded_lock:
+        for ck in [k for k in _decoded_cache if k[0] == str(feat)]:
+            del _decoded_cache[ck]
+
+
 class GooferResampler:
     """13-positional-arg UTAU resampler (ref: SillySampler.py:286-306).
 
     Constructing the object renders the note, like the reference.
-    ``device`` None picks config.get_device() (CUDA unless
-    $GOOFER_TPU_TORCH_DEVICE says otherwise); ``seed`` seeds every random
-    stream of the render."""
+    ``editor_hook(y_snip, sr, init_mask) -> mask|None`` replaces the
+    blocking tkinter editor for SE1.  ``device`` None picks
+    config.get_device() (CUDA unless $GOOFER_TPU_TORCH_DEVICE says
+    otherwise); ``seed`` seeds every random stream of the render."""
 
     def __init__(self, in_file, out_file, pitch, velocity, flags="",
                  offset=0, length=1000, consonant=0, cutoff=0,
                  volume=100, modulation=0, tempo="!120", pitch_string="AA",
-                 n_fft=config.SAMPLER_N_FFT, hop=config.SAMPLER_HOP,
-                 seed: int = 0, device=None, autorender: bool = True):
+                 editor_hook=None, n_fft=config.SAMPLER_N_FFT,
+                 hop=config.SAMPLER_HOP, seed: int = 0, device=None,
+                 autorender: bool = True):
         self.in_file = Path(in_file)
         self.out_file = Path(out_file)
         self.params = NoteParams.from_args(
             pitch, velocity, flags, offset, length, consonant, cutoff,
             volume, modulation, tempo, pitch_string)
+        self.editor_hook = editor_hook
         self.n_fft = n_fft
         self.hop = hop
         self.seed = seed
@@ -299,6 +341,29 @@ class GooferResampler:
         out = self.resample(env, f0i, vmask, forms, sr, ylen)
         log.info("Writing %s", self.out_file)
         write_wav(self.out_file, out.cpu().numpy(), sr)
+
+    def _editor_roundtrip(self, mask_cut: np.ndarray, cut, sr):
+        """SE1: run the voicing editor on the note snippet and write the
+        edited mask back into the .goofy (ref: SillySampler.py:577-616)."""
+        from goofer_tpu_torch.editor.core import write_back_voicing
+        from goofer_tpu_torch.utils.audio_io import read_wav_mono
+
+        p = self.params
+        feat_path = _feature_path(self.in_file)
+        y_src, _ = read_wav_mono(self.in_file)
+        if p.reverse:
+            y_src = y_src[::-1]
+        y_snip = y_src[cut.start_sample:cut.end_sample].astype(np.float32)
+
+        result = self.editor_hook(y_snip, sr, mask_cut.astype(np.float32))
+        if result is not None and len(result) == len(mask_cut):
+            edited = np.asarray(result, dtype=np.float32)
+            write_back_voicing(str(feat_path), edited, cut.start_sample,
+                               cut.end_sample, p.reverse)
+            forget_features(feat_path)
+            invalidate_render_cache(str(self.out_file), str(feat_path))
+            return edited
+        return mask_cut
 
     def resample(self, env, f0i, vmask, forms, sr, ylen) -> torch.Tensor:
         """Host planning, then the note render on ``self.device``."""
@@ -351,11 +416,13 @@ class GooferResampler:
 
         # --- SE editor + FV -------------------------------------------
         if p.use_editor:
-            # the reference blocks on its tkinter editor here; the port
-            # has no editor yet, so it renders unedited, as goofer_tpu
-            # does headless
-            log.warning("[SE] flag set but no editor is available "
-                        "— rendering unedited")
+            if self.editor_hook is not None:
+                mask_cut = self._editor_roundtrip(mask_cut, cut, sr)
+            else:
+                # the reference blocks on its tkinter editor here;
+                # headless, the skip is logged, never silent
+                log.warning("[SE] flag set but no editor is available "
+                            "(no display/tkinter) — rendering unedited")
         if p.force_voiced:
             mask_cut = np.ones_like(mask_cut)
 

@@ -174,6 +174,7 @@ class RequestHandler(BaseHTTPRequestHandler):
         self.end_headers()
 
     def do_POST(self):
+        from goofer_tpu_torch.editor.gui import available_interactive_hook
         from goofer_tpu_torch.sampler.flags import NoteParams
         from goofer_tpu_torch.sampler.resampler import GooferResampler
 
@@ -181,13 +182,14 @@ class RequestHandler(BaseHTTPRequestHandler):
         body = self.rfile.read(content_length).decode("utf-8")
         try:
             args = split_arguments(body)
-            # SE1 requests keep the direct per-request path, as the CLI
-            # does (ref: SillySampler.py:581-611); the port has no editor
-            # yet, so they render unedited.  Everything else merges into
-            # burst batches.
+            # SE1 opens the blocking editor when a display exists, the
+            # CLI's contract (ref: SillySampler.py:581-611); those
+            # requests keep the direct per-request path.  Everything else
+            # merges into burst batches.
             params = NoteParams.from_args(*args[2:])
             if params.use_editor:
-                GooferResampler(*args)
+                GooferResampler(*args,
+                                editor_hook=available_interactive_hook())
             else:
                 _batcher.submit(args)
         except Exception:

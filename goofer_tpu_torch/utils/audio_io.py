@@ -1,9 +1,12 @@
-"""Mono WAV I/O through ``scipy.io.wavfile``.
+"""Audio file I/O (port of goofer_tpu/utils/audio_io.py).
 
-The JAX package reads and writes audio through its native C++ codecs
-(goofer_tpu/utils/audio_io.py); those are not ported yet, so this module
-handles PCM and float WAV only, with libsndfile's float conventions
-(int16 / 32768 in, 16-bit PCM out).
+The reference reads and writes audio through libsndfile (soundfile).
+Here WAV goes through the native C++ RIFF codec (goofer_tpu_torch.native;
+scipy for a WAV subformat the codec rejects, and for int16 PCM out),
+FLAC and AIFF through the native sndcodec and MP3 through the system
+libmpg123, all with libsndfile's float conventions (int16 / 32768 in,
+16-bit PCM out, ties rounded away from zero).  A failed build of a codec
+raises; only a decoder's rejection of a file is caught.
 """
 from __future__ import annotations
 
@@ -12,13 +15,36 @@ from pathlib import Path
 import numpy as np
 from scipy.io import wavfile
 
-# what read_wav decodes; goofer_tpu also reads flac, aiff and mp3 through
-# its native codecs
-AUDIO_EXTS = [".wav"]
+from goofer_tpu_torch import native
+
+AUDIO_EXTS = [".wav", ".flac", ".aiff", ".aif", ".mp3"]
 
 
 def read_wav(path) -> tuple[np.ndarray, int]:
-    """Read a WAV file as float64 in [-1, 1); channels are kept."""
+    """Read an audio file as float64 in [-1, 1); channels are kept."""
+    low = str(path).lower()
+    if low.endswith(".wav"):
+        try:
+            data, sr = native.read_wav(path)
+            return data.astype(np.float64), int(sr)
+        except OSError:
+            pass  # unusual subformat: scipy below
+    elif low.endswith((".flac", ".aiff", ".aif", ".mp3")):
+        try:
+            if low.endswith(".flac"):
+                data, sr = native.read_flac(path)
+            elif low.endswith(".mp3"):
+                data, sr = native.read_mp3(path)
+            else:
+                data, sr = native.read_aiff(path)
+            return data.astype(np.float64), int(sr)
+        except OSError:
+            # goofer_tpu's curated error; this port takes no soundfile
+            # branch
+            raise RuntimeError(
+                f"cannot decode {path}: the native flac/aiff/mp3 decoders "
+                f"rejected it and the optional 'soundfile' (libsndfile) "
+                f"package is not importable in this environment") from None
     sr, data = wavfile.read(str(path))
     if data.dtype == np.int16:
         data = data.astype(np.float64) / 32768.0
@@ -42,16 +68,14 @@ def read_wav_mono(path) -> tuple[np.ndarray, int]:
 def write_wav(path, data: np.ndarray, sr: int) -> None:
     """Write audio as 16-bit PCM WAV (soundfile's default subtype).
 
-    Float input is quantized; int16 input (the PCM of
-    ``render_phrase(..., pcm16=True)``) is written as it is."""
+    Float input is quantized by the native codec, as goofer_tpu does;
+    int16 input (the PCM of ``render_phrase(..., pcm16=True)``) is written
+    as it is."""
     data = np.asarray(data)
     if data.dtype == np.int16:
         wavfile.write(str(path), int(sr), data)
         return
-    clipped = np.clip(np.asarray(data, dtype=np.float64), -1.0,
-                      32767.0 / 32768.0)
-    pcm = np.round(clipped * 32768.0).astype(np.int16)
-    wavfile.write(str(path), int(sr), pcm)
+    native.write_wav(path, data, sr)
 
 
 def is_audio_file(path) -> bool:

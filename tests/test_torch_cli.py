@@ -68,7 +68,9 @@ def test_cli_unported_modes_and_errors(src, tmp_path, monkeypatch):
 
     monkeypatch.setattr(server, "run", bad_args)
     assert cli.main([]) == 0                                  # help
-    assert cli.main([str(tmp_path / "a.goofy")]) == 1        # editor
+    # the editor mode is ported: a missing .goofy is skipped, as in
+    # goofer_tpu (tests/test_torch_editor.py holds the mode itself)
+    assert cli.main([str(tmp_path / "a.goofy")]) == 0
     assert cli.main([str(src), "out.wav", "C4"]) == 1         # too few
     assert cli.main([str(tmp_path / "nowhere")]) == 1         # no such path
     # the folder mode is ported: src.wav has its cache, nothing to do

@@ -241,8 +241,12 @@ def test_pad_trim_to_len():
 # ------------------------------------------------------------- folder mode
 
 def test_is_audio_file():
+    from goofer_tpu.utils.audio_io import is_audio_file as j_is_audio_file
+
     assert is_audio_file("a/b.WAV") and is_audio_file(Path("x.wav"))
-    assert not is_audio_file("x.flac") and not is_audio_file("x.goofy")
+    for name in ("x.flac", "x.aiff", "x.AIF", "x.mp3", "x.goofy", "x"):
+        assert is_audio_file(name) == j_is_audio_file(name), name
+    assert is_audio_file("x.flac") and not is_audio_file("x.goofy")
 
 
 def _bank(tmp_path):

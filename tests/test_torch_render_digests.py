@@ -7,7 +7,12 @@ taken from the tree before the facade's synthesis options (subharmonic
 semitone lists, subharmonic jitter, volume vibrato, brightness off,
 roughness) became SynthStatic fields and knobs: a field or a noise
 stream that the note render forgets to pass changes a digest.  One
-intra-op thread, so that no reduction's split depends on the worker."""
+intra-op thread, so that no reduction's split depends on the worker.
+
+The heavy note goes through write_wav, whose float path became the
+native codec's (ties rounded away from zero, as goofer_tpu writes them):
+its digest was re-recorded then, from the same float samples, of which
+10 sit on a tie and moved by one step."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -28,7 +33,7 @@ PHRASE_SCALE = ("C4", "D4", "E4", "F4")
 
 DIGESTS = {
     "heavy_note":
-        "34dbf93da870fec101d9a70068961207a76d190999d2b6b97a13ff111f0f762d",
+        "72e95d190a044e19f54ffffe107e2edefa844157dc39383d37b66672517a4dc1",
     "phrase_b_0":
         "2bdf277fe317a47b7f967efcf31a5d52583a6af4ca02f05e7d87c5c292af2ff6",
     "phrase_b_1":
