@@ -128,8 +128,25 @@ Phases (any failure raises and the script exits nonzero):
    through cli.main (three .goofy files with equal features, one launch of
    each analysis kernel); host ms to decode each format; prints the
    codec: line;
-19. print the phrases, analysis, server, facade, editor, codec and
-   kernels summaries as one JSON line each, then the device line.
+19. the mesh path (goofer_tpu_torch/parallel): meshes V (dp 2 x tp 2,
+   four slots of the one card), M1 (every visible card) and, where the
+   machine shows two or more cards, M2 over them (a mesh not built is
+   printed with the reason); phrases (b) and (a) through
+   render_phrase(mesh=) on each, every row within the row-vs-note-alone
+   budget (noise on) of render_phrase on one device, pcm16 int16, each
+   kernel launched once per pass per non-empty shard; the 64-file folder
+   through extract_features_recursive(mesh=V), every .goofy within the
+   folder-row budget of the single-device run, each analysis kernel once
+   per non-empty shard of each chunk; dryrun_multichip(4) on V's four
+   slots (and over the real cards where there are two or more);
+   render_batch_sharded on V at the production frames, K 64 and 63: the
+   tp-reduced log-envelope bit-equal to decode_log_env_from_knots, the
+   stems within the row-vs-alone budgets of render_batch on one device,
+   B = 3 raising; prints warm wall ms single vs each mesh (median of 7
+   after 2), V's device busy and idle share for (b), the folder's warm
+   ms, launches and the sharded-vs-single differences;
+20. print the phrases, analysis, server, facade, editor, codec, parallel
+   and kernels summaries as one JSON line each, then the device line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
 launches between one pair of CUDA events, enqueued behind a spin kernel
@@ -175,9 +192,14 @@ from goofer_tpu_torch.ops.cuda import (
     pulse_kernel,
     viterbi_kernel,
 )
-from goofer_tpu_torch.sampler import phrase, server
+from goofer_tpu_torch.parallel import batch as par_batch, dryrun
+from goofer_tpu_torch.parallel.mesh import make_mesh
+from goofer_tpu_torch.sampler import batch_extract, phrase, server
 from goofer_tpu_torch.sampler.render_core import render_note
-from goofer_tpu_torch.sampler.resampler import GooferResampler
+from goofer_tpu_torch.sampler.resampler import (
+    GooferResampler,
+    acquire_features,
+)
 from goofer_tpu_torch.utils.audio_io import read_wav, read_wav_mono, write_wav
 from goofer_tpu_torch.utils.metrics import lsd_db
 
@@ -471,12 +493,18 @@ def phrase_f0(batch: int, n: int) -> np.ndarray:
 def phrase_pulse_cases():
     """(name, f0 (B, n), gate or None, K) at the phrase renderer's shapes:
     the main pass of the 50 short and of the 80 long notes at the K = 32
-    a heavy group is harmonized to, and the sg layer's gated pass."""
+    a heavy group is harmonized to, and the sg layer's gated pass; then
+    the same passes at the largest shard each group gives on the parallel
+    phase's four-slot mesh V (13 and 20 rows)."""
     short = phrase_f0(50, N_PHRASE_SHORT)
     long = phrase_f0(80, N_PHRASE_LONG)
+    gate = (long > 0).astype(np.float32)
     return [("phrase_b50", short, None, 32),
             ("phrase_b80", long, None, 32),
-            ("phrase_sg_b80", long, (long > 0).astype(np.float32), None)]
+            ("phrase_sg_b80", long, gate, None),
+            ("phrase_b13_shard", short[:13], None, 32),
+            ("phrase_b20_shard", long[:20], None, 32),
+            ("phrase_sg_b20_shard", long[:20], gate[:20], None)]
 
 
 def facade_inputs():
@@ -695,15 +723,16 @@ def facade_cascade_cases():
     return [("facade_rough_hp1", x[None], alpha, 1, "highpass")]
 
 
-def phrase_cascade_cases():
+def phrase_cascade_cases(batch: int = 80):
     """(name, x (B, n), alpha, order, btype) at the phrase renderer's
-    shapes: the 80 long notes' su/sj layer highpass (order 12) and st
-    tension lowpass (order 4), each row with its own (B, n) coefficients
-    from its own f0, and the fry pair of 80 notes, 160 rows sharing the
-    200 Hz highpass's one (n,) coefficient row."""
+    shapes: the ``batch`` long notes' su/sj layer highpass (order 12) and
+    st tension lowpass (order 4), each row with its own (B, n)
+    coefficients from its own f0, and their fry pair, 2 x ``batch`` rows
+    sharing the 200 Hz highpass's one (n,) coefficient row.  80 is phrase
+    (b)'s group, 20 its shard on the parallel phase's mesh V."""
     n = N_PHRASE_LONG
     rng = np.random.default_rng(2)
-    f0 = phrase_f0(80, n)
+    f0 = phrase_f0(batch, n)
     phase = np.cumsum(f0 / SR, axis=1)
     x = (np.sin(2 * np.pi * phase) ** 15 * 0.8
          + 0.05 * rng.standard_normal(f0.shape)).astype(np.float32)
@@ -716,9 +745,9 @@ def phrase_cascade_cases():
                                 "highpass").numpy()
     pair = np.concatenate(
         [x, 0.1 * rng.standard_normal(x.shape).astype(np.float32)])
-    return [("phrase_hp12_b80", x, hp, 12, "highpass"),
-            ("phrase_lp4_b80", x, lp, 4, "lowpass"),
-            ("phrase_hp6_fry_b160", pair, fry, 6, "highpass")]
+    return [(f"phrase_hp12_b{batch}", x, hp, 12, "highpass"),
+            (f"phrase_lp4_b{batch}", x, lp, 4, "lowpass"),
+            (f"phrase_hp6_fry_b{2 * batch}", pair, fry, 6, "highpass")]
 
 
 def check_cascade_kernel(cases):
@@ -985,10 +1014,11 @@ def _render_planned(notes, bucket, quiet: bool, seed: int = 0):
 
 
 def _hold(name, got, want, quiet: bool, floor: float = 0.0):
-    """The parity budgets: noise stems zeroed, 5e-3 x peak on all but 0.1%
-    of samples (a pulse onset whose phase sits within rounding of an
-    integer may land one sample off) and 0.1 dB LSD; noise on, LSD <=
-    max(1 dB, seed-to-seed + 0.5 dB)."""
+    """The parity budgets: noise stems zeroed (``quiet``), 5e-3 x peak on
+    all but 0.1% of samples (a pulse onset whose phase sits within
+    rounding of an integer may land one sample off) and 0.1 dB LSD; noise
+    on, LSD <= max(1 dB, seed-to-seed + 0.5 dB).  Two renders that draw
+    from the same noise keys are held to the first with the noise on."""
     if got.shape != want.shape or not np.isfinite(got).all():
         raise AssertionError(f"{name}: shape {got.shape} vs {want.shape} or "
                              "non-finite")
@@ -997,7 +1027,8 @@ def _hold(name, got, want, quiet: bool, floor: float = 0.0):
     if quiet:
         if float((d > 5e-3).mean()) > 1e-3 or not lsd < 0.1:
             raise AssertionError(f"{name}: max|diff|/peak {d.max():.3e}, "
-                                 f"LSD {lsd:.4f} dB with noise zeroed")
+                                 f"LSD {lsd:.4f} dB over the noise-zeroed "
+                                 "budget")
     elif not lsd <= max(1.0, floor + 0.5):
         raise AssertionError(f"{name}: LSD {lsd:.3f} dB over max(1, "
                              f"{floor:.3f} + 0.5)")
@@ -1053,15 +1084,21 @@ def check_phrase_buckets(name, notes):
     return worst
 
 
+def _sync_cards():
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
 def _median_ms(fn, reps: int, warm: int = 2) -> float:
     """Median wall ms of ``fn`` over ``reps`` runs after ``warm`` unmeasured
-    ones, the device synchronized around each."""
+    ones, every card synchronized around each."""
     times = []
     for rep in range(warm + reps):
-        torch.cuda.synchronize()
+        _sync_cards()
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _sync_cards()
         if rep >= warm:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -2410,6 +2447,326 @@ def codec_slice(tmp: Path, dev: str = "cuda") -> dict:
     return out
 
 
+def _all_launches():
+    """The five kernels' counters: pulse, cascade, Viterbi, roots, Burg."""
+    return _launches() + _analysis_launches()
+
+
+def _zero_launches():
+    for k in (pulse_kernel.pulse_accumulate, cascade_kernel.one_pole_cascade,
+              viterbi_kernel.pitch_viterbi, lpc_roots_kernel.lpc_roots,
+              burg_kernel.burg_lpc):
+        k.launches = 0
+
+
+def parallel_meshes(dev: str) -> dict:
+    """V: dp 2 x tp 2, four slots that all name the first card (``dev``);
+    M1: every visible card, tp 1; M2: dp x tp over the real cards where
+    the machine shows two or more.  A mesh that cannot be built is printed
+    with the reason."""
+    first = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    meshes = {"V": make_mesh(4, tp=2, devices=[first] * 4)}
+    try:
+        meshes["M1"] = make_mesh()
+        print(f"parallel: mesh M1 over {meshes['M1'].size} visible "
+              f"card(s): {[str(d) for d in meshes['M1'].slots]}")
+    except RuntimeError as e:
+        print(f"parallel: mesh M1 not built: {e}")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards >= 2:
+        meshes["M2"] = make_mesh(cards, tp=2 if cards % 2 == 0 else 1)
+        print(f"parallel: mesh M2 {meshes['M2'].shape} over {cards} cards")
+    else:
+        print(f"parallel: mesh M2 not built: the machine shows {cards} "
+              "card(s), M2 needs two or more")
+    return meshes
+
+
+def phrase_launch_plan(notes, slots: int, dev) -> list:
+    """What render_phrase(mesh=) of ``slots`` slots launches: each group's
+    non-empty shards times what one note of the group launches alone."""
+    planned, _ = phrase.plan_phrase(notes, device=dev)
+    want = [0, 0]
+    for (rs, _), members in phrase.group_planned(planned).items():
+        m = members[0]
+        before = _launches()
+        render_note(rs, m.arrays, m.scalars, 0, dev)
+        shards = min(len(members), slots)
+        want = [w + shards * (b - a)
+                for w, a, b in zip(want, before, _launches())]
+    return want
+
+
+def production_knots(src: str, dev, k: int, b: int = 4, n: int = 32768):
+    """``b`` cuts of the voice source at the production frames (1024/256):
+    knots (B, K, T) read from its decoded log-envelope at the K knot bins,
+    f0 and mask (B, n), formant tracks (B, 4, T); host arrays."""
+    env, f0i, vmask, forms, _, _ = acquire_features(Path(src), N_FFT, HOP,
+                                                    dev)
+    t = 1 + n // HOP
+    log_env = np.log(np.maximum(env, 1e-8))[
+        envelope._knot_bin_idx(SR, N_FFT, k, N_FFT // 2 + 1)]
+    offs = [i * HOP * ((env.shape[1] - t) // (b - 1)) for i in range(b)]
+    tracks = np.stack([np.asarray(forms[j], np.float32) for j in (1, 2, 3, 4)])
+    return (np.stack([log_env[:, o // HOP:o // HOP + t] for o in offs]),
+            np.stack([f0i[o:o + n] for o in offs]).astype(np.float32),
+            np.stack([vmask[o:o + n] for o in offs]).astype(np.float32),
+            np.stack([tracks[:, o // HOP:o // HOP + t] for o in offs]))
+
+
+def check_batch_sharded(mesh, src: str, dev) -> dict:
+    """render_batch_sharded on ``mesh`` at the production frames: the
+    tp-reduced log-envelope bit-equal to decode_log_env_from_knots, K 64
+    and 63; the stems held to render_batch on one device, which draws
+    from the same (seed, row) keys, by the noise-zeroed budget with the
+    noise zeroed and on; a B that dp does not divide raises."""
+    st = synth.SynthStatic(sr=SR, n_fft=N_FFT, hop=HOP, n=32768)
+    worst = {}
+    for k in (64, 63):
+        knots, f0, mask, tracks = production_knots(src, dev, k)
+        logs = par_batch.tp_log_env(mesh, knots, SR, N_FFT, N_FFT // 2 + 1)
+        want = envelope.decode_log_env_from_knots(
+            torch.as_tensor(knots, device=dev), SR, N_FFT, N_FFT // 2 + 1)
+        if not torch.equal(torch.cat([g.to(want.device) for g in logs]),
+                           want):
+            raise AssertionError(f"render_batch_sharded K={k}: the tp-"
+                                 "reduced log-envelope is not bit-equal")
+        nb = par_batch.NoteBatch(torch.exp(want), *(
+            torch.as_tensor(a, device=dev) for a in (f0, mask, tracks)),
+            np.full(len(f0), f0.shape[1]))
+        for quiet in (True, False):
+            knobs = ({"uv_strength": 0.0, "breath_strength": 0.0} if quiet
+                     else None)
+            got = par_batch.render_batch_sharded(mesh, st, knots, f0, mask,
+                                                 tracks, knobs=knobs)[0]
+            ref = par_batch.render_batch(st, nb, knobs=knobs)[0]
+            # the same (seed, row) keys: the noise-zeroed budget either way
+            errs = [_hold(f"render_batch_sharded K={k} row {i}",
+                          got[i].cpu().numpy(), ref[i].cpu().numpy(), True)
+                    for i in range(len(f0))]
+            worst[(k, quiet)] = [max(e[j] for e in errs) for j in (0, 1)]
+    try:
+        par_batch.render_batch_sharded(mesh, st, knots[:3], f0[:3], mask[:3],
+                                       tracks[:3])
+    except ValueError as e:
+        if "not divisible by the dp" not in str(e):
+            raise
+    else:
+        raise AssertionError("render_batch_sharded: B=3 on dp 2 did not "
+                             "raise")
+    print(f"parallel: render_batch_sharded on V, B=4 x 32768 samples, "
+          f"K 64 and 63: log-envelope bit-equal to decode_log_env_from_knots;"
+          f" stems vs render_batch on one device, noise zeroed max|diff|/peak "
+          f"{max(worst[(k, True)][0] for k in (64, 63)):.3e} LSD "
+          f"{max(worst[(k, True)][1] for k in (64, 63)):.4f} dB, noise on "
+          f"max|diff|/peak {max(worst[(k, False)][0] for k in (64, 63)):.3e}"
+          f" LSD {max(worst[(k, False)][1] for k in (64, 63)):.4f} dB; B=3 "
+          "raises")
+    return {"log_env_bit_equal": True,
+            "quiet_max_rel": max(worst[(k, True)][0] for k in (64, 63)),
+            "quiet_lsd_db": max(worst[(k, True)][1] for k in (64, 63)),
+            "noisy_max_rel": max(worst[(k, False)][0] for k in (64, 63)),
+            "noisy_lsd_db": max(worst[(k, False)][1] for k in (64, 63))}
+
+
+def check_sharded_folder(one: Path, sharded: Path, files: int) -> None:
+    """Each .goofy the sharded folder run wrote against the single-device
+    run's, within the folder-row budget."""
+    for i in range(files):
+        name = f"folder v{i:02d} on V vs one device"
+        a = load_features(sharded / f"v{i:02d}_features.goofy")
+        b = load_features(one / f"v{i:02d}_features.goofy")
+        _f16_track_equal(name + " (f0)", a[1], b[1])
+        _f16_track_equal(name + " (mask)", a[2], b[2])
+        k_a, k_b = a[0]["knot_vals_log"], b[0]["knot_vals_log"]
+        if a[5] != b[5] or k_a.shape != k_b.shape or knot_steps(
+                k_a, k_b) > 1.001:
+            raise AssertionError(f"{name}: K {k_a.shape} vs {k_b.shape}, "
+                                 f"length {a[5]} vs {b[5]} or knots differ")
+        _formants_close(name, a[3], b[3])
+
+
+def parallel_slice(tmp: Path, dev: str = "cuda", notes: int | None = None,
+                   files: int = BANK_FILES, reps: int = 7,
+                   mesh_reps: int = 3) -> dict:
+    """Drive the mesh path (goofer_tpu_torch/parallel) on ``dev``: phrases
+    (b) and (a) through render_phrase(mesh=) on every mesh, render_batch_
+    sharded and the 64-file folder through extract_features_recursive
+    (mesh=V), and dryrun_multichip on V (and on the real cards where there
+    are two or more), the five counters set to 0 just before and read just
+    after; then the checks and the numbers.  ``notes``, ``files``,
+    ``reps`` and ``mesh_reps`` (the timed runs on one device and on a
+    mesh) cut the phrases, the folder and the timing for a rehearsal on
+    the CPU.  Returns the numbers, with the path's launches under
+    "launches"."""
+    t0 = time.perf_counter()
+    src = str(tmp / "voice.wav")
+    first = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    meshes = parallel_meshes(dev)
+    sung = phrase_notes(src)
+    phrases = {k: sung[k][:notes] for k in ("b", "a")}
+    cuts = voicebank_cuts()[:files]
+    folders = {name: tmp / f"par_{name}" for name in ("one", "V")}
+    for d in folders.values():
+        d.mkdir()
+        for i, y in enumerate(cuts):
+            write_wav(d / f"v{i:02d}.wav", y, SR)
+    batch_extract.extract_features_recursive(folders["one"], device=first)
+    # the single-device phrases, for the comparison
+    single = {name: phrase.render_phrase(ns, device=first)
+              for name, ns in phrases.items()}
+
+    _zero_launches()
+    outs, pcm, launched = {}, {}, {}
+    for mname, mesh in meshes.items():
+        for pname, ns in phrases.items():
+            before = _all_launches()
+            pcm[mname, pname] = phrase.render_phrase(ns, pcm16=True,
+                                                     mesh=mesh)
+            launched[mname, pname] = [
+                b - a for a, b in zip(before, _all_launches())][:2]
+    before = _all_launches()
+    batch_extract.extract_features_recursive(folders["V"], mesh=meshes["V"])
+    folder_launches = [b - a for a, b in zip(before, _all_launches())][2:]
+    dryrun.dryrun_multichip(4, devices=[first] * 4)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards >= 2:
+        dryrun.dryrun_multichip(cards)
+        print(f"parallel: dryrun_multichip({cards}) over the real cards "
+              "passed")
+    else:
+        print(f"parallel: dryrun_multichip over real cards not run: the "
+              f"machine shows {cards} card(s)")
+    out = {"launches": _all_launches()}
+    print(f"parallel: dryrun_multichip(4) on V (four slots of {first}) "
+          "passed")
+    batch_info = check_batch_sharded(meshes["V"], src, first)
+
+    # launches and outputs
+    for (mname, pname), got in launched.items():
+        want = phrase_launch_plan(phrases[pname], meshes[mname].size, first)
+        if got != want:
+            raise AssertionError(
+                f"parallel: phrase {pname} on {mname} launched pulse "
+                f"{got[0]} and cascade {got[1]} times, expected {want}: "
+                "each shard once per pass")
+    diffs = {}
+    for mname in meshes:
+        for pname, ns in phrases.items():
+            floats = phrase.render_phrase(ns, mesh=meshes[mname])
+            errs = []
+            for i, (q, y, ref) in enumerate(zip(pcm[mname, pname], floats,
+                                                single[pname])):
+                if q.dtype != np.int16 or q.shape != ref.shape:
+                    raise AssertionError(
+                        f"parallel: phrase {pname} on {mname} note {i}: "
+                        f"pcm16 gave {q.dtype} {q.shape}")
+                # a note keeps its key (seed, index) on any shard
+                errs.append(_hold(f"parallel: phrase {pname} on {mname} "
+                                  f"note {i}", y, ref, True))
+            diffs[mname, pname] = [max(e[j] for e in errs) for j in (0, 1)]
+    plan = list(features.chunk_plan([len(y) for y in cuts], HOP,
+                                    features.EXTRACT_CHUNK_FILES,
+                                    features.EXTRACT_CHUNK_FRAMES))
+    want = sum(min(len(part), meshes["V"].size) for _, part in plan)
+    if folder_launches != [want] * 3:
+        raise AssertionError(f"parallel: folder on V launched Viterbi, roots "
+                             f"and Burg {folder_launches} times, expected "
+                             f"{want} each: one per non-empty shard")
+    check_sharded_folder(folders["one"], folders["V"], len(cuts))
+    print(f"parallel: folder of {len(cuts)} files on V: {len(plan)} chunks, "
+          f"launches Viterbi {folder_launches[0]} roots "
+          f"{folder_launches[1]} Burg {folder_launches[2]} (one per "
+          "non-empty shard); every .goofy within the folder-row budget of "
+          "the single-device run")
+
+    # the numbers
+    def run(ns, mesh=None):
+        if mesh is None:
+            return lambda: phrase.render_phrase(ns, pcm16=True, device=first)
+        return lambda: phrase.render_phrase(ns, pcm16=True, mesh=mesh)
+
+    for pname, ns in phrases.items():
+        audio_s = _audio_s(ns)
+        ms = {"single": _median_ms(run(ns), reps)}
+        for mname, mesh in meshes.items():
+            ms[mname] = _median_ms(run(ns, mesh), mesh_reps)
+        out[pname] = {
+            "notes": len(ns), "audio_s": audio_s, "wall_ms": ms,
+            "x_realtime": {k: audio_s * 1e3 / v for k, v in ms.items()},
+            "launches": {m: launched[m, pname] for m in meshes},
+            "max_rel_diff": {m: diffs[m, pname][0] for m in meshes},
+            "lsd_db": {m: diffs[m, pname][1] for m in meshes}}
+        print(f"parallel: phrase {pname}, {len(ns)} notes, {audio_s:.2f} s: "
+              f"warm wall ms (median of {reps} after 2 on one device, of "
+              f"{mesh_reps} after 2 on a mesh) " + ", ".join(
+                  f"{k} {v:.3f} ({audio_s * 1e3 / v:.1f} x realtime)"
+                  for k, v in ms.items())
+              + "; launches " + ", ".join(
+                  f"{m} {launched[m, pname]}" for m in meshes)
+              + "; vs one device, noise on, noise-zeroed budget: "
+              + ", ".join(
+                  f"{m} max|diff|/peak {diffs[m, pname][0]:.3e} LSD "
+                  f"{diffs[m, pname][1]:.4f} dB" for m in meshes))
+    if dev == "cuda":
+        profile_reps = 3
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profile_reps):
+                phrase.render_phrase(phrases["b"], pcm16=True,
+                                     mesh=meshes["V"])
+            _sync_cards()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_us, kernels = device_busy(prof)
+        if busy_us <= 0.0:
+            raise AssertionError("parallel: no device activity for phrase "
+                                 "b on V")
+        out["b"]["V_device_busy_ms"] = busy_us / 1e3 / profile_reps
+        out["b"]["V_idle_share"] = 1.0 - busy_us / 1e3 / wall_ms
+        out["b"]["V_device_kernels"] = len(kernels) / profile_reps
+    else:
+        out["b"].update(V_device_busy_ms=None, V_idle_share=None,
+                        V_device_kernels=None)
+    decoded = [read_wav_mono(p)[0]
+               for p in sorted(folders["V"].glob("v*.wav"))]
+
+    def folder():
+        for p in folders["V"].glob("*_features.goofy"):
+            p.unlink()
+        batch_extract.extract_features_recursive(folders["V"],
+                                                 mesh=meshes["V"])
+
+    out["folder"] = {
+        "files": len(cuts), "chunks": len(plan),
+        "launches_per_kernel": want,
+        "analysis_ms": {
+            "single": _median_ms(lambda: features.extract_features_batch(
+                decoded, SR, N_FFT, HOP, dense=False, device=first), 5),
+            "V": _median_ms(lambda: features.extract_features_batch(
+                decoded, SR, N_FFT, HOP, dense=False, mesh=meshes["V"]),
+                mesh_reps)},
+        # once: the checked run above was its warm-up
+        "folder_ms_V": _median_ms(folder, 1, warm=0)}
+    out["render_batch_sharded"] = batch_info
+    out["meshes"] = {m: {"shape": mesh.shape,
+                         "devices": [str(d) for d in mesh.slots]}
+                     for m, mesh in meshes.items()}
+    f = out["folder"]
+    print(f"parallel: phrase b on V profiled: device busy "
+          f"{out['b']['V_device_busy_ms']} ms per phrase, idle share "
+          f"{out['b']['V_idle_share']}, device kernels "
+          f"{out['b']['V_device_kernels']}; folder analysis alone "
+          f"(median of 5, V of {mesh_reps}) single "
+          f"{f['analysis_ms']['single']:.3f} ms, V "
+          f"{f['analysis_ms']['V']:.3f} ms; folder through "
+          f"extract_features_recursive on V, once after the checked run, "
+          f"{f['folder_ms_V']:.3f} ms")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"parallel: the phase took {out['seconds']:.2f} s")
+    return out
+
+
 def build_codecs() -> tuple[list[Path], float]:
     """Build the two host codec libraries (g++), one thread each; returns
     their paths and the seconds taken."""
@@ -2442,7 +2799,8 @@ def main() -> int:
     err, p_rows = check_pulse_kernel(_pulse_cases() + phrase_pulse_cases()
                                      + facade_pulse_cases())
     c_err, c_rel, c_rows = check_cascade_kernel(
-        cascade_cases() + phrase_cascade_cases() + facade_cascade_cases())
+        cascade_cases() + phrase_cascade_cases() + phrase_cascade_cases(20)
+        + facade_cascade_cases())
     dev = torch.device("cuda")
     v_err, v_bad, v_rows = check_viterbi_kernel(viterbi_cases(dev))
     frame_cases = lpc_cases(dev)
@@ -2464,7 +2822,12 @@ def main() -> int:
         facade = facade_slice()
         edited = editor_slice(Path(tmp))
         codec = codec_slice(Path(tmp))
+        par = parallel_slice(Path(tmp))
     codec["build_s"] = codec_s
+    pa_launches = par.pop("launches")
+    if min(pa_launches) <= 0:
+        raise AssertionError(f"the mesh path launched the five kernels "
+                             f"{pa_launches} times: each must run")
     v_launches, r_launches, b_launches = analysis.pop("launches")
     if min(v_launches, r_launches, b_launches) <= 0:
         raise AssertionError(
@@ -2511,6 +2874,7 @@ def main() -> int:
     print(json.dumps({"facade": facade}))
     print(json.dumps({"editor": edited}))
     print(json.dumps({"codec": codec}))
+    print(json.dumps({"parallel": par}))
     def per_chunk(n_launches):
         return {"launches_per_chunk": n_launches / analysis["chunks"],
                 "chunks": analysis["chunks"],
@@ -2530,7 +2894,9 @@ def main() -> int:
                 "scans of max-plus matrices; here the sequential solve "
                 "with a backtrace, one CTA per file, the transition costs "
                 "computed ahead of the chain",
-        "launches": v_launches + fa_analysis[0] + co_analysis[0],
+        "launches": (v_launches + fa_analysis[0] + co_analysis[0]
+                     + pa_launches[2]),
+        "launches_parallel_path": pa_launches[2],
         "launches_folder_path": v_launches,
         "launches_facade_path": fa_analysis[0],
         "launches_codec_path": co_analysis[0],
@@ -2557,7 +2923,9 @@ def main() -> int:
         "note": "replaces non-Pallas JAX code: _poly_roots_dk's fori_loop "
                 "of 60 Durand-Kerner iterations; floor(32 / order) "
                 "frames per warp, a root per lane",
-        "launches": r_launches + fa_analysis[1] + co_analysis[1],
+        "launches": (r_launches + fa_analysis[1] + co_analysis[1]
+                     + pa_launches[3]),
+        "launches_parallel_path": pa_launches[3],
         "launches_folder_path": r_launches,
         "launches_facade_path": fa_analysis[1],
         "launches_codec_path": co_analysis[1],
@@ -2586,7 +2954,9 @@ def main() -> int:
                 "over the order; one warp per frame, each lane's "
                 "stretch of the errors in registers (shared memory past "
                 "1152 samples)",
-        "launches": b_launches + fa_analysis[2] + co_analysis[2],
+        "launches": (b_launches + fa_analysis[2] + co_analysis[2]
+                     + pa_launches[4]),
+        "launches_parallel_path": pa_launches[4],
         "launches_folder_path": b_launches,
         "launches_facade_path": fa_analysis[2],
         "launches_codec_path": co_analysis[2],
@@ -2615,8 +2985,9 @@ def main() -> int:
                 "(goofer_tpu/ops/pulse.py:109, :84, :170) and the "
                 "K-bounded LF accumulation of the Pallas kernel",
         "launches": (launches + ph_launches + sv_launches + fa_launches
-                     + ed_launches + co_launches),
+                     + ed_launches + co_launches + pa_launches[0]),
         "launches_note_path": launches,
+        "launches_parallel_path": pa_launches[0],
         "launches_phrase_path": ph_launches,
         "launches_server_path": sv_launches,
         "launches_per_server_burst": sv_launches / SERVER_BURST_REPS,
@@ -2650,8 +3021,10 @@ def main() -> int:
         "note": "replaces non-Pallas JAX code: first_order_recurrence_pos, "
                 "the stage solver of dynamic_one_pole_cascade",
         "launches": (c_launches + ph_c_launches + sv_c_launches
-                     + fa_c_launches + ed_c_launches + co_c_launches),
+                     + fa_c_launches + ed_c_launches + co_c_launches
+                     + pa_launches[1]),
         "launches_note_path": c_launches,
+        "launches_parallel_path": pa_launches[1],
         "launches_phrase_path": ph_c_launches,
         "launches_server_path": sv_c_launches,
         "launches_per_server_burst": sv_c_launches / SERVER_BURST_REPS,

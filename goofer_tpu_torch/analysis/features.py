@@ -22,6 +22,8 @@ device-to-host transfers on its platform and are not ported.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -35,6 +37,7 @@ from goofer_tpu_torch.analysis.pitch import (
     pitch_graph,
     pitch_window_len,
 )
+from goofer_tpu_torch.devices import run_on_slots, shard_bounds
 from goofer_tpu_torch.ops.envelope import (
     KNOT_EPS,
     KNOT_K_VALUES,
@@ -187,12 +190,47 @@ def chunk_inputs(ys, n_pad: int, sr: int, hop: int, f0_min: float = 75.0):
             *padded_grid(f_grids, f_pad))
 
 
+def _extract_rows(ys, n_pad: int, sr: int, n_fft: int, hop: int,
+                  f0_min: float, f0_merge_range: int, with_formants: bool,
+                  dense: bool, device) -> list:
+    """Files ``ys`` of one chunk (padded to ``n_pad``) as one
+    analyze_chunk pass on ``device``: their per-file result tuples, as
+    extract_features_batch returns them."""
+    yb, n_true, p_starts, p_nf, f_starts, f_nf = chunk_inputs(
+        ys, n_pad, sr, hop, f0_min)
+    env, f0, mask, tracks, knots16, chosen = analyze_chunk(
+        *(torch.as_tensor(a, device=device)
+          for a in (yb, n_true, p_starts, p_nf, f_starts)),
+        int(sr), n_fft, hop, float(f0_min), int(f0_merge_range),
+        bool(with_formants))
+    env = env.cpu().numpy() if dense else None
+    f0, mask, tracks, knots16, chosen = (
+        t.cpu().numpy() for t in (f0, mask, tracks, knots16, chosen))
+
+    results = []
+    for j in range(len(ys)):
+        n = int(n_true[j])
+        t_true = 1 + n // hop
+        tr = tracks[j, :, :int(f_nf[j])]
+        if tr.shape[1] < t_true:
+            tr = np.pad(tr, ((0, 0), (0, t_true - tr.shape[1])))
+        else:
+            tr = tr[:, :t_true]
+        results.append((
+            None if env is None else env[j, :, :t_true],
+            f0[j, :n].astype(np.float64),
+            mask[j, :n].astype(np.float64),
+            {k + 1: tr[k] for k in range(tr.shape[0])},
+            _knot_pack(knots16[j], chosen[j], sr, n_fft, t_true)))
+    return results
+
+
 def extract_features_batch(ys, sr: int, n_fft: int = 1024,
                            hop_length: int = 256, f0_min: float = 75.0,
                            f0_merge_range: int = 2,
                            with_formants: bool = True,
                            chunk: int = EXTRACT_CHUNK_FILES,
-                           dense: bool = True, device=None):
+                           dense: bool = True, device=None, mesh=None):
     """Batched feature extraction of ``ys``, a list of 1-D float arrays at
     a common sample rate, on ``device`` (None: config.get_device()).
     Returns a list of per-file tuples (env_spec, f0_interp, voicing_mask,
@@ -202,38 +240,35 @@ def extract_features_batch(ys, sr: int, n_fft: int = 1024,
     dict.
 
     ``dense=False`` (folder extraction): the dense envelope stays on the
-    device and env_spec comes back None; everything else is the same."""
-    device = config.get_device(device)
+    device and env_spec comes back None; everything else is the same.
+
+    ``mesh`` (a parallel.mesh.Mesh, not together with ``device``) splits
+    each chunk's files into contiguous shards over the mesh's slots, each
+    shard one analyze_chunk pass on its slot's device at the chunk's
+    padded length (devices.run_on_slots): a row's features do not depend
+    on the rows beside it, so the files come back as from one device."""
+    if mesh is not None and device is not None:
+        raise ValueError("extract_features_batch: pass device= or mesh=, "
+                         "not both")
+    slots = (mesh.slots if mesh is not None
+             else [config.get_device(device)])
     ys = [np.asarray(y, dtype=np.float32) for y in ys]
-    results: list = [None] * len(ys)
-
+    tasks = [[] for _ in slots]
+    order = [[] for _ in slots]
     for n_pad, part in chunk_plan([len(y) for y in ys], hop_length, chunk,
-                               EXTRACT_CHUNK_FRAMES):
-        yb, n_true, p_starts, p_nf, f_starts, f_nf = chunk_inputs(
-            [ys[i] for i in part], n_pad, sr, hop_length, f0_min)
-        env, f0, mask, tracks, knots16, chosen = analyze_chunk(
-            *(torch.as_tensor(a, device=device)
-              for a in (yb, n_true, p_starts, p_nf, f_starts)),
-            int(sr), n_fft, hop_length, float(f0_min), int(f0_merge_range),
-            bool(with_formants))
-        env = env.cpu().numpy() if dense else None
-        f0, mask, tracks, knots16, chosen = (
-            t.cpu().numpy() for t in (f0, mask, tracks, knots16, chosen))
-
-        for j, i in enumerate(part):
-            n = int(n_true[j])
-            t_true = 1 + n // hop_length
-            tr = tracks[j, :, :int(f_nf[j])]
-            if tr.shape[1] < t_true:
-                tr = np.pad(tr, ((0, 0), (0, t_true - tr.shape[1])))
-            else:
-                tr = tr[:, :t_true]
-            results[i] = (
-                None if env is None else env[j, :, :t_true],
-                f0[j, :n].astype(np.float64),
-                mask[j, :n].astype(np.float64),
-                {k + 1: tr[k] for k in range(tr.shape[0])},
-                _knot_pack(knots16[j], chosen[j], sr, n_fft, t_true))
+                                  EXTRACT_CHUNK_FRAMES):
+        for s, (lo, hi) in enumerate(shard_bounds(len(part), len(slots))):
+            if hi > lo:
+                tasks[s].append(partial(
+                    _extract_rows, [ys[i] for i in part[lo:hi]], n_pad,
+                    int(sr), n_fft, hop_length, f0_min, f0_merge_range,
+                    with_formants, dense, slots[s]))
+                order[s].append(part[lo:hi])
+    results: list = [None] * len(ys)
+    for idx, done in zip(order, run_on_slots(slots, tasks)):
+        for files, rows in zip(idx, done):
+            for i, row in zip(files, rows):
+                results[i] = row
     return results
 
 

@@ -24,6 +24,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "goofer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# one lock for every wrapper's launch counter: the mesh path launches
+# from one worker thread per card, and ``+= 1`` is a read-modify-write
+# that can lose a count between threads
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock.  Reads and resets
+    stay plain attribute accesses (``wrapper.launches = 0``)."""
+    with _count_lock:
+        wrapper.launches += 1
+
 
 def find_nvcc() -> str:
     """Path of ``nvcc``: on PATH, else the toolkit's default prefix."""

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from goofer_tpu_torch.ops.cuda._build import Kernel
+from goofer_tpu_torch.ops.cuda._build import Kernel, count_launch
 
 MAX_ORDER = 32
 MAX_WLEN = 4010
@@ -71,7 +71,7 @@ def burg_lpc(frames: torch.Tensor, order: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"burg_lpc kernel launch failed: CUDA error "
                            f"{err}")
-    burg_lpc.launches += 1
+    count_launch(burg_lpc)
     return coeffs
 
 

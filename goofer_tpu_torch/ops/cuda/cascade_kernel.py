@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from goofer_tpu_torch.ops.cuda._build import Kernel
+from goofer_tpu_torch.ops.cuda._build import Kernel, count_launch
 
 BTYPES = ("lowpass", "highpass")
 MAX_ORDER = 12
@@ -82,7 +82,7 @@ def one_pole_cascade(x: torch.Tensor, alpha: torch.Tensor, order: int,
     if err != 0:
         raise RuntimeError(f"one_pole_cascade kernel launch failed: CUDA "
                            f"error {err}")
-    one_pole_cascade.launches += 1
+    count_launch(one_pole_cascade)
     return out
 
 

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from goofer_tpu_torch.ops.cuda._build import Kernel
+from goofer_tpu_torch.ops.cuda._build import Kernel, count_launch
 
 MAX_ORDER = 32
 DK_ITERS = 60
@@ -65,7 +65,7 @@ def lpc_roots(coeffs: torch.Tensor, iters: int = DK_ITERS) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"lpc_roots kernel launch failed: CUDA error "
                            f"{err}")
-    lpc_roots.launches += 1
+    count_launch(lpc_roots)
     return torch.view_as_complex(roots)
 
 

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from goofer_tpu_torch.ops.cuda._build import Kernel
+from goofer_tpu_torch.ops.cuda._build import Kernel, count_launch
 
 CLUSTER = 8
 THREADS = 1024
@@ -106,7 +106,7 @@ def pulse_accumulate(f0: torch.Tensor, gate: torch.Tensor | None,
     if err != 0:
         raise RuntimeError(f"pulse_accumulate kernel launch failed: CUDA "
                            f"error {err}")
-    pulse_accumulate.launches += 1
+    count_launch(pulse_accumulate)
     return out
 
 

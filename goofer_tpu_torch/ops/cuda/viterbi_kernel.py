@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from goofer_tpu_torch.ops.cuda._build import Kernel
+from goofer_tpu_torch.ops.cuda._build import Kernel, count_launch
 
 CANDIDATES = 6
 SHARED_BACK_BYTES = 32 * 1024
@@ -101,7 +101,7 @@ def pitch_viterbi(freqs: torch.Tensor, strengths: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"pitch_viterbi kernel launch failed: CUDA "
                            f"error {err}")
-    pitch_viterbi.launches += 1
+    count_launch(pitch_viterbi)
     return f0, path
 
 

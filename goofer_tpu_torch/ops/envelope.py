@@ -88,20 +88,27 @@ def _knot_bin_idx(sr: int, n_fft: int, k: int, n_bins: int) -> np.ndarray:
                    0, n_bins - 1)
 
 
-def decode_env_from_knots(knot_vals_log: torch.Tensor, sr: int, n_fft: int,
-                          n_bins: int) -> torch.Tensor:
-    """exp(W @ knots) in float32 for (..., K, T) knots, truncated to
-    n_bins rows (ref: GOOFER.py:149-168).  W has two non-zero weights per
-    row, so the product is a lerp of two gathered knot rows: two rounded
-    products and one add per element, the same on every device and BLAS
-    build."""
+def decode_log_env_from_knots(knot_vals_log: torch.Tensor, sr: int,
+                              n_fft: int, n_bins: int) -> torch.Tensor:
+    """W @ knots in float32 for (..., K, T) knots, truncated to n_bins
+    rows.  W has two non-zero weights per row, so the product is a lerp
+    of two gathered knot rows: two rounded products and one add per
+    element, the same on every device and BLAS build."""
     idx, w = _decode_taps(sr, n_fft, knot_vals_log.shape[-2])
     dev = knot_vals_log.device
     idx = torch.as_tensor(idx[:n_bins], device=dev)
     w = torch.as_tensor(w[:n_bins], device=dev)
     knots = knot_vals_log.float()
-    return torch.exp(w[:, :1] * knots.index_select(-2, idx)
-                     + w[:, 1:] * knots.index_select(-2, idx + 1))
+    return (w[:, :1] * knots.index_select(-2, idx)
+            + w[:, 1:] * knots.index_select(-2, idx + 1))
+
+
+def decode_env_from_knots(knot_vals_log: torch.Tensor, sr: int, n_fft: int,
+                          n_bins: int) -> torch.Tensor:
+    """exp(W @ knots) in float32 for (..., K, T) knots, truncated to
+    n_bins rows (ref: GOOFER.py:149-168); see decode_log_env_from_knots."""
+    return torch.exp(decode_log_env_from_knots(knot_vals_log, sr, n_fft,
+                                               n_bins))
 
 
 def knot_errors(env: torch.Tensor, sr: int, n_fft: int,

@@ -53,19 +53,23 @@ def process_file(audio_file: Path, n_fft: int = 1024, hop: int = 256,
 
 
 def extract_features_recursive(input_path, n_fft: int = 1024,
-                               hop: int = 256, device=None) -> int:
+                               hop: int = 256, device=None,
+                               mesh=None) -> int:
     """Recursively extract features for every audio file under a path, on
-    ``device`` (None: config.get_device()).  Returns the number of audio
-    files found.
+    ``device`` (None: config.get_device()), or split over the slots of
+    ``mesh`` (a parallel.mesh.Mesh).  Returns the number of audio files
+    found.
 
     Decode and save run on a thread pool (the reference's only real
     parallelism, ref: SillySampler.py:235-238); analysis runs as
-    length-bucketed batched passes on the device."""
+    length-bucketed batched passes on the device (extract_features_batch,
+    which shards each chunk over the mesh)."""
     from goofer_tpu_torch import config
     from goofer_tpu_torch.analysis.features import extract_features_batch
     from goofer_tpu_torch.io.goofy import save_features
 
-    device = config.get_device(device)
+    if mesh is None:
+        device = config.get_device(device)
     input_path = Path(input_path)
     all_files = (input_path.rglob("*") if input_path.is_dir()
                  else [input_path])
@@ -104,7 +108,7 @@ def extract_features_recursive(input_path, n_fft: int = 1024,
                 log.info("[EXTRACT] %s", f)
             results = extract_features_batch(
                 [y for _, y in group], sr, n_fft=n_fft, hop_length=hop,
-                dense=False, device=device)
+                dense=False, device=device, mesh=mesh)
             for (f, y), res in zip(group, results):
                 _, f0i, vmask, forms, knots = res
                 writes.append(pool.submit(

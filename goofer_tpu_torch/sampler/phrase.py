@@ -15,21 +15,27 @@ What goofer_tpu needs here for XLA and the port does not: the cache of
 jitted vmapped graphs and its budget, the ahead-of-time export, the
 compile thread pool, and the padding of the batch size to a bucket
 (eager PyTorch takes any batch size; config.bucket_batch stays for
-static-shape replay).  Sharding a phrase over several devices is not
-ported yet.  Length buckets are kept, for another reason than bounding
-compiles: without them a phrase of 40 distinct note lengths is 40
-batches of one note.
+static-shape replay).  Length buckets are kept, for another reason than
+bounding compiles: without them a phrase of 40 distinct note lengths is
+40 batches of one note.
+
+With a mesh (parallel/mesh.py), each group's notes split into contiguous
+shards over the mesh's slots, each shard one batched pass on its slot's
+device, issued by devices.run_on_slots (one worker per distinct device);
+a note keeps its noise key (seed, note index) whichever shard renders it.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, replace
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from goofer_tpu_torch import config
+from goofer_tpu_torch.devices import run_on_slots, shard_bounds, synchronize
 from goofer_tpu_torch.io.goofy import formants_to_int_keys
 from goofer_tpu_torch.sampler.render_core import (
     ARRAY_KEYS as ARRAY_ORDER,
@@ -217,7 +223,7 @@ def render_group(rs, members, seed: int, pcm16: bool, device) -> torch.Tensor:
 def render_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
                   hop: int = config.SAMPLER_HOP, seed: int = 0,
                   pcm16: bool = False, bucket: bool | str = "auto",
-                  fetch: bool = True, device=None):
+                  fetch: bool = True, device=None, mesh=None):
     """Render a list of NoteSpec; returns the list of waveforms (NumPy,
     each of its note's true length) in the input order.  Notes sharing a
     render signature go through the render as one batch; every group is
@@ -238,24 +244,35 @@ def render_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
     None.
 
     ``device`` None picks config.get_device() (CUDA unless
-    $GOOFER_TPU_TORCH_DEVICE says otherwise)."""
-    device = config.get_device(device)
-    planned, _ = plan_phrase(notes, n_fft, hop, bucket=bucket, device=device)
+    $GOOFER_TPU_TORCH_DEVICE says otherwise).  ``mesh`` (a
+    parallel.mesh.Mesh, not together with ``device``) splits every
+    group's notes over the mesh's slots; planning decodes knot envelopes
+    on its first device."""
+    if mesh is not None and device is not None:
+        raise ValueError("render_phrase: pass device= or mesh=, not both")
+    slots = (mesh.slots if mesh is not None
+             else [config.get_device(device)])
+    planned, _ = plan_phrase(notes, n_fft, hop, bucket=bucket,
+                             device=slots[0])
     outs: list = [None] * len(planned)
-    on_card = device.type == "cuda"
 
-    pending = []
-    for (rs, _), members in group_planned(planned).items():
-        result = render_group(rs, members, seed, pcm16, device)
-        if fetch and on_card:
+    def issue(rs, members, dev):
+        result = render_group(rs, members, seed, pcm16, dev)
+        if fetch and dev.type == "cuda":
             host = torch.empty(result.shape, dtype=result.dtype,
                                pin_memory=True)
             host.copy_(result, non_blocking=True)
             result = host
-        pending.append((rs, members, result))
+        return rs, members, result
 
-    if on_card:
-        torch.cuda.synchronize(device)
+    tasks = [[] for _ in slots]
+    for (rs, _), members in group_planned(planned).items():
+        for i, (lo, hi) in enumerate(shard_bounds(len(members), len(slots))):
+            if hi > lo:
+                tasks[i].append(partial(issue, rs, members[lo:hi], slots[i]))
+    pending = [p for done in run_on_slots(slots, tasks) for p in done]
+
+    synchronize(slots)
     if not fetch:
         return None
     for rs, members, result in pending:
@@ -269,7 +286,9 @@ def render_phrase_to_wavs(notes, out_paths, **kw):
     """Render and write one WAV per note (batch offline rendering), each
     at its source's sample rate."""
     outs = render_phrase(notes, **kw)
-    device = config.get_device(kw.get("device"))
+    mesh = kw.get("mesh")
+    device = (mesh.slots[0] if mesh is not None
+              else config.get_device(kw.get("device")))
     n_fft = kw.get("n_fft", config.SAMPLER_N_FFT)
     hop = kw.get("hop", config.SAMPLER_HOP)
     for spec, wave, path in zip(notes, outs, out_paths):

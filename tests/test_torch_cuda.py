@@ -379,11 +379,13 @@ def test_render_on_card_matches_cpu(dev, cfg_id):
 
 
 @pytest.mark.parametrize("name", ["phrase_b50", "phrase_b80",
-                                  "phrase_sg_b80"])
+                                  "phrase_sg_b80", "phrase_b13_shard",
+                                  "phrase_b20_shard", "phrase_sg_b20_shard"])
 def test_pulse_kernel_phrase_shapes(dev, name):
     """A phrase group's rows in one launch: B = 50 and 80 rows spanning
     G3-C5 at the K = 32 a heavy group is harmonized to, and the gated sg
-    pass; the onset scratch grows with B."""
+    pass; the onset scratch grows with B.  13 and 20 rows: a shard of
+    each group on a four-slot mesh."""
     _, f0_np, gate_np, k = next(c for c in phrase_pulse_cases()
                                 if c[0] == name)
     f0 = torch.as_tensor(f0_np, device=dev)
@@ -393,12 +395,15 @@ def test_pulse_kernel_phrase_shapes(dev, name):
 
 
 @pytest.mark.parametrize("name", ["phrase_hp12_b80", "phrase_lp4_b80",
-                                  "phrase_hp6_fry_b160"])
+                                  "phrase_hp6_fry_b160", "phrase_hp12_b20",
+                                  "phrase_lp4_b20", "phrase_hp6_fry_b40"])
 def test_cascade_kernel_phrase_shapes(dev, name):
     """A phrase group's rows in one launch, each with its own (B, n)
-    coefficient row, and the fry pair's 160 rows sharing one."""
-    _, x_np, alpha_np, order, btype = next(c for c in phrase_cascade_cases()
-                                           if c[0] == name)
+    coefficient row, and the fry pair's 160 rows sharing one; and a shard
+    of the group on a four-slot mesh (20 rows, the pair's 40)."""
+    _, x_np, alpha_np, order, btype = next(
+        c for c in phrase_cascade_cases() + phrase_cascade_cases(20)
+        if c[0] == name)
     x = torch.as_tensor(x_np, device=dev)
     alpha = torch.as_tensor(alpha_np, device=dev)
     before = one_pole_cascade.launches
@@ -648,3 +653,71 @@ def test_vocal_roughness_card_vs_cpu(dev):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0.0,
                                atol=1e-3 * float(want.abs().max()))
+
+
+# ------------------------------------------------------------ mesh path
+
+def _card_mesh(n, tp=1):
+    from goofer_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, tp=tp, devices=[torch.device("cuda", 0)] * n)
+
+
+@pytest.mark.parametrize("k", [63, 64])
+def test_tp_log_env_bit_equal_on_card(dev, k):
+    """dp 2 x tp 2 on four slots of the card: the tp-reduced log-envelope
+    is decode_log_env_from_knots bit for bit."""
+    from goofer_tpu_torch.ops.envelope import decode_log_env_from_knots
+    from goofer_tpu_torch.parallel.batch import tp_log_env
+
+    knots = torch.as_tensor(np.random.default_rng(k).normal(
+        -4.0, 3.0, (4, k, 200)).astype(np.float32), device=dev)
+    rows = tp_log_env(_card_mesh(4, tp=2), knots, SR, 1024, 513)
+    want = decode_log_env_from_knots(knots, SR, 1024, 513)
+    assert [r.shape[0] for r in rows] == [2, 2]
+    assert torch.equal(torch.cat(rows), want)
+
+
+def test_phrase_on_a_card_mesh(dev, tmp_path):
+    """Three notes of one group on two slots of the card: one launch per
+    pass per shard.  Each note keeps its noise key on either slot, so with
+    the noise on a row is held to the single-device render by the
+    noise-zeroed budget: 5e-3 x peak on all but 0.1% of samples and
+    0.1 dB LSD."""
+    import shutil
+    from pathlib import Path
+
+    voice = Path(__file__).parent / "golden" / "voice"
+    shutil.copy(voice / "src.wav", tmp_path / "a.wav")
+    shutil.copy(voice / "src_features.goofy", tmp_path / "a_features.goofy")
+    notes = [phrase.NoteSpec(str(tmp_path / "a.wav"), p, length=400,
+                             consonant=60, flags=f)
+             for p, f in (("C4", "t10"), ("E4", "B20"), ("G3", "t-20"))]
+    one = phrase.render_phrase(notes, seed=5, device=dev)
+    before = pulse_accumulate.launches
+    got = phrase.render_phrase(notes, seed=5, mesh=_card_mesh(2))
+    assert pulse_accumulate.launches - before == 2
+    for a, b in zip(got, one):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert (np.abs(a - b) > 5e-3 * np.abs(b).max()).mean() <= 1e-3
+        assert lsd_db(a, b, SR) < 0.1
+
+
+def test_extraction_on_a_card_mesh(dev):
+    """Five bank files on three slots: one launch of each analysis kernel
+    per non-empty shard, rows within the folder-row budget of one device."""
+    cuts = [pcm16(y) for y in voicebank_cuts()[:5]]
+    plan = list(features.chunk_plan([len(y) for y in cuts], 256, 64, 16384))
+    one = features.extract_features_batch(cuts, SR, dense=False, device=dev)
+    before = pitch_viterbi.launches, lpc_roots.launches, burg_lpc.launches
+    got = features.extract_features_batch(cuts, SR, dense=False,
+                                          mesh=_card_mesh(3))
+    want = sum(min(len(part), 3) for _, part in plan)
+    assert (pitch_viterbi.launches - before[0], lpc_roots.launches
+            - before[1], burg_lpc.launches - before[2]) == (want,) * 3
+    for i, (row, ref) in enumerate(zip(got, one)):
+        _f16_track_equal(f"file {i} f0", row[1], ref[1])
+        _f16_track_equal(f"file {i} mask", row[2], ref[2])
+        assert knot_steps(row[4]["knot_vals_log"],
+                          ref[4]["knot_vals_log"]) <= 1.001
+        _formants_close(f"file {i}", row[3], ref[3])

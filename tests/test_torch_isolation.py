@@ -37,6 +37,10 @@ def test_port_imports_no_jax():
         "import goofer_tpu_torch.models.hnm, goofer_tpu_torch.compat\n"
         "import goofer_tpu_torch.native\n"
         "import goofer_tpu_torch.editor.core, goofer_tpu_torch.editor.gui\n"
+        "import goofer_tpu_torch.parallel, goofer_tpu_torch.parallel.mesh\n"
+        "import goofer_tpu_torch.parallel.batch\n"
+        "import goofer_tpu_torch.parallel.dryrun\n"
+        "import goofer_tpu_torch.devices\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'goofer_tpu'))\n"

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Rehearse chip_smoke.py's editor and codec phases on the CPU.
+"""Rehearse chip_smoke.py's editor, codec and parallel phases on the CPU.
 
     python3 tools/torch_smoke_rehearsal.py
 
-Runs ``build_codecs``, ``editor_slice`` and ``codec_slice`` of
+Runs ``build_codecs``, ``editor_slice``, ``codec_slice`` and
+``parallel_slice`` (phrases cut to 12 notes, 12 files, 1 timed run) of
 chip_smoke.py with ``dev="cpu"``: the kernels' plain versions stand in,
 each call of one counted as its kernel's launch, so that the phases'
 launch checks, file checks and int16 comparisons run before a chip call.
+The parallel phase's meshes repeat the CPU; its M1 and M2 are printed as
+not built (no card).
 ``torch.cuda.synchronize`` becomes a no-op, and the codecs are built
 afresh into a temporary directory, so that their build is timed.  The
 times it prints are host times on the CPU, never device numbers.
 """
 from __future__ import annotations
 
+import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -47,7 +51,7 @@ def count_plain_calls() -> None:
 
         def counted(*args, _real=real, **kwargs):
             out = _real(*args, **kwargs)
-            counted_by_name[_real.__name__].launches += 1
+            _build.count_launch(counted_by_name[_real.__name__])
             return out
 
         counted.launches = 0
@@ -66,6 +70,11 @@ def main() -> int:
         print(f"codec build (g++, both at once): {seconds:.2f} s")
         chip_smoke.editor_slice(Path(tmp), dev="cpu")
         chip_smoke.codec_slice(Path(tmp), dev="cpu")
+        for ext in (".wav", "_features.goofy"):
+            shutil.copy(chip_smoke.REPO / "tests" / "golden" / "voice"
+                        / f"src{ext}", Path(tmp) / f"voice{ext}")
+        chip_smoke.parallel_slice(Path(tmp), dev="cpu", notes=12, files=12,
+                                  reps=1, mesh_reps=1)
     return 0
 
 
