@@ -9,9 +9,10 @@ Phases (any failure raises and the script exits nonzero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels (csrc/pulse_accumulate.cu,
-   csrc/one_pole_cascade.cu, csrc/pitch_viterbi.cu, csrc/lpc_roots.cu and
-   csrc/burg_lpc.cu), one nvcc each, started together, into
-   build/goofer_tpu_torch/ and print the build time; beside them g++
+   csrc/one_pole_cascade.cu, csrc/gaussian_blur.cu, csrc/pitch_viterbi.cu,
+   csrc/lpc_roots.cu and csrc/burg_lpc.cu), one nvcc each, started
+   together, into build/goofer_tpu_torch/ and print the build time;
+   beside them g++
    builds the host audio codecs (csrc/wavcodec.cpp, csrc/sndcodec.cpp,
    goofer_tpu_torch.native), whose build time is printed too;
 3. check the pulse kernel (the whole pulse pass: f0 in, pulse train out)
@@ -24,12 +25,21 @@ Phases (any failure raises and the script exits nonzero):
    n=40000; HP orders 1, 6 and 12, LP orders 4 and 6; the order-12 layer
    at n=48510, the longest note, and 262144; a silent row must give exact
    zeros), max |diff| <= 1e-4 x max|x|, and cross-check one kernel time
-   against torch.profiler's device time;
+   against torch.profiler's device time; then the blur kernel at the
+   heavy note's and phrase (b)'s shapes (sample axis: sigma 441 and 20
+   over 48510 samples and 80 x 33074, the jitters' coarse grids, a track
+   shorter than the window; bin axis of (80, 513, T): sigma 0.5-2),
+   max |diff| <= 1e-5 x max|x|, each batch's first, middle and last row
+   equal bit for bit to the row launched alone, timed beside cuDNN's
+   conv1d of the padded rows;
 5. render the 12 golden configs and the heavy 11-flag stack through
    goofer_tpu_torch.cli.main on CUDA from the vendored .goofy caches:
-   each golden must be finite, of the golden's length and within its
-   golden's LSD budget; both kernels' launch counters must rise, 4 pulse
-   and 5 cascade launches per heavy note; print each config's warm
+   each golden must be finite, of the golden's length, within its
+   golden's LSD budget and within 15 cents of F0 RMSE over the frames
+   voiced in both, as tests/test_golden.py holds goofer_tpu's (texture
+   and voice_texture exempt, their readings printed: F0_UNSTABLE); the
+   kernels' launch counters must rise, 4 pulse and 5
+   cascade launches per heavy note; print each config's readings, warm
    per-note time and launches per note;
 6. hold the heavy stack against the port's own CPU render of the same
    note (it is stochastic: LSD <= max(1 dB, CPU seed-to-seed + 0.5 dB));
@@ -51,7 +61,11 @@ Phases (any failure raises and the script exits nonzero):
    and non-silent; rows of (a) and (b) are held to the same note rendered
    alone with the same (seed, index) key, (c) bucketed to unbucketed
    (5e-3 x peak on all but 0.1% of samples and 0.1 dB LSD with the noise
-   stems zeroed; LSD <= max(1 dB, seed-to-seed + 0.5 dB) with noise on);
+   stems zeroed; LSD <= max(1 dB, seed-to-seed + 0.5 dB) with noise on,
+   but (b)'s rows with the noise on are held to the noise-zeroed budget,
+   and printed beside it are the same rows with cuDNN's conv1d put back
+   for the blur and with cuFFT's C2R left to read the DC and Nyquist
+   bins' imaginary parts, and irfft_rows, that C2R on random spectra);
    print warm wall time with and without the copy to the host, x
    realtime, device busy, idle share and device kernels per phrase, and
    the 97 notes rendered one by one;
@@ -83,8 +97,9 @@ Phases (any failure raises and the script exits nonzero):
    vendored .goofy (f0 within 1% and voicing on >= 98% of samples), check
    the recorded vowel's extraction for sanity, render all 12 goldens from
    fresh directories that hold the source WAV alone (the first render
-   extracts and saves) within their LSD budgets, and print the warm
-   extraction time with and without reads and writes, device busy, idle
+   extracts and saves) within their LSD budgets and F0 gate, and print
+   the warm extraction time with and without reads and writes, device
+   busy, idle
    share, device kernels and each analysis kernel's device ms per folder;
 15. the server (sampler/server.py) in-process on 127.0.0.1 at an
    ephemeral port: warm-up (kernel builds, one note, one burst), one POST
@@ -145,8 +160,18 @@ Phases (any failure raises and the script exits nonzero):
    B = 3 raising; prints warm wall ms single vs each mesh (median of 7
    after 2), V's device busy and idle share for (b), the folder's warm
    ms, launches and the sharded-vs-single differences;
-20. print the phrases, analysis, server, facade, editor, codec, parallel
-   and kernels summaries as one JSON line each, then the device line.
+20. the public surface (surface_slice): launchers/goofer-sampler-torch.sh
+   on the heavy note against python -m goofer_tpu_torch.cli (equal at
+   int16, launches from each one's log); examples/engine_selftest_torch.py
+   on _input.wav on the card and on the CPU (four finite stems, the
+   analysis and pulse kernels launched, the reconstruct stems within
+   max(1 dB, seed-to-seed + 0.5 dB)); a plain note through a read-only
+   copy of the package as pyproject.toml ships it, its kernels and codec
+   built under XDG_CACHE_HOME, equal at int16 to the in-tree render;
+   every path from step 5 on must have launched the blur kernel;
+21. print the phrases, analysis, server, facade, editor, codec, parallel,
+   surface and kernels summaries as one JSON line each, then the device
+   line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
 launches between one pair of CUDA events, enqueued behind a spin kernel
@@ -159,6 +184,7 @@ Imports nothing of JAX or goofer_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -176,6 +202,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from goofer_tpu_torch import cli, compat, config, native
 from goofer_tpu_torch.analysis import features, formants, pitch
@@ -183,9 +210,18 @@ from goofer_tpu_torch.editor import gui
 from goofer_tpu_torch.engine import synth
 from goofer_tpu_torch.io.goofy import formants_to_int_keys, load_features
 from goofer_tpu_torch.models import hnm
-from goofer_tpu_torch.ops import envelope, jitter, noise, pulse, scan_iir
+from goofer_tpu_torch.ops import (
+    envelope,
+    filters,
+    jitter,
+    noise,
+    pulse,
+    scan_iir,
+    stft,
+)
 from goofer_tpu_torch.ops.cuda import (
     _build,
+    blur_kernel,
     burg_kernel,
     cascade_kernel,
     lpc_roots_kernel,
@@ -201,7 +237,7 @@ from goofer_tpu_torch.sampler.resampler import (
     acquire_features,
 )
 from goofer_tpu_torch.utils.audio_io import read_wav, read_wav_mono, write_wav
-from goofer_tpu_torch.utils.metrics import lsd_db
+from goofer_tpu_torch.utils.metrics import f0_rmse_cents, lsd_db
 
 REPO = Path(__file__).resolve().parent
 
@@ -222,6 +258,18 @@ LSD_BUDGET_DB = {
     "voice_texture": 1.38 + 0.5,
     "voice_fry": 0.79 + 0.5,
 }
+# tests/test_golden.py's pitch gate: F0 RMSE of a render against its golden,
+# both tracked at dt = 256 / sr, over the frames voiced in both where there
+# are at least F0_MIN_FRAMES.  Exempt, their readings printed: the two
+# heavy-texture configs, whose jitter and subharmonic layers make the
+# tracker octave-unstable on any render of the class (test_golden.py
+# exempts voice_texture; its "texture" passes there only with fewer than 8
+# frames voiced in both: 0, 5 and 1 for goofer_tpu's renders at seeds 0-2,
+# at 1261 and 2047 cents where any; the port's seed-0 render leaves 9, at
+# 369 cents, and its golden's own track wanders 386-520 Hz on an E4)
+F0_BUDGET_CENTS = 15.0
+F0_MIN_FRAMES = 8
+F0_UNSTABLE = ("texture", "voice_texture")
 # both sides float32, at most K terms of size <= 1: room for CUDA vs ATen
 # transcendental rounding only
 PULSE_TOL = 1e-4
@@ -236,6 +284,13 @@ HEAVY = ("heavy_stack", "C4", 100,
          0, 100, 0, "!120", "AA")
 HEAVY_CASCADE_LAUNCHES = 5
 HEAVY_PULSE_LAUNCHES = 4
+# relative to max|x|: the kernel's in-order fmaf sum and cuDNN's conv1d of
+# the same reflect-padded rows (float32 on both sides, TF32 off), up to
+# 3529 normalized taps
+BLUR_TOL = 1e-5
+# the blur kernel's rows at phrase (b)'s batch size, held bit for bit to
+# the same row launched alone
+BLUR_BATCH = 80
 SR = 44100
 HOP = 256
 N_FFT = 1024
@@ -362,13 +417,30 @@ def device_events(prof):
     return events
 
 
+@contextlib.contextmanager
+def device_profile():
+    """torch.profiler over the device activity of the block, its tracing
+    started one step ahead on a trivial kernel whose step is discarded:
+    CUPTI can miss the first kernels after tracing starts (it recorded 99
+    of 100 launches once, and none once)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+        torch.zeros(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+        torch.cuda.synchronize()
+        prof.step()
+
+
 def profiler_ms(fn, kernel: str, reps: int = TIMED_REPS) -> float:
     """Mean device time of ``kernel`` per call of ``fn`` from
     torch.profiler, the cross-check of cuda_ms."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -798,6 +870,161 @@ def check_cascade_kernel(cases):
     return worst, worst_rel, rows
 
 
+def blur_cases():
+    """(name, x, sigma, axis): the main path's blurs at the heavy note's
+    and phrase (b)'s shapes.  Along the samples: pd's bend and voicing
+    mask (sigma 441, 3529 taps) and vj's mask (sigma 20) over the note's
+    48510 samples and (b)'s 80 x 33074; the jitters' coarse grids (sigma /
+    ds 9.25 and 12.25) and the voicing crossfade's (sigma 25) at (b)'s 80
+    rows; a track shorter than the window (repeated reflection).  Along
+    the bins of (B, 513, T): the complex spectrum blur (0.5), the breath
+    envelope (1.75) and the envelope smoothing (2.0) at (b)'s B."""
+    rng = np.random.default_rng(11)
+
+    def rows(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    b = BLUR_BATCH
+    return [
+        ("note_s441", rows(1, N_LONG), 441.0, -1),
+        ("note_s20", rows(1, N_LONG), 20.0, -1),
+        ("phrase_s441", rows(b, N_PHRASE_LONG - 1), 441.0, -1),
+        ("phrase_s20", rows(b, N_PHRASE_LONG - 1), 20.0, -1),
+        ("phrase_jitter_s12.25", rows(b, 8270), 12.25, -1),
+        ("phrase_jitter_s9.25", rows(b, 4136), 9.25, -1),
+        ("phrase_mask_s25", rows(b, 8269), 25.0, -1),
+        ("short_track_s441", rows(3, 700), 441.0, -1),
+        ("phrase_bins_s0.5", rows(b, 513, 130), 0.5, -2),
+        ("phrase_bins_s1.75", rows(b, 513, 129), 1.75, -2),
+        ("phrase_bins_s2", rows(b, 513, 344), 2.0, -2),
+    ]
+
+
+def check_blur_kernel(cases):
+    """Kernel vs plain version on the card, every case, and each batch's
+    first, middle and last row launched alone against the same row in the
+    batch, bit for bit; returns the worst max |diff|, the worst max
+    |diff| / max|x| and each case's (shape, taps, kernel ms, plain ms,
+    F.conv1d ms, bound ms, what bounds it).  The library column is one
+    cuDNN conv1d of the rows already reflect-padded: the plain version's
+    last step."""
+    blur = blur_kernel.gaussian_blur
+    dev = torch.device("cuda")
+    worst = worst_rel = 0.0
+    rows = {}
+    for name, x_np, sigma, axis in cases:
+        x = torch.as_tensor(x_np, device=dev)
+        taps = filters.gaussian_kernel1d(sigma)
+        got = blur(x, taps, axis)
+        want = filters.blur_plain(x, taps, axis)
+        torch.cuda.synchronize()
+        if got.shape != x.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"gaussian_blur {name}: shape "
+                                 f"{tuple(got.shape)} or non-finite")
+        err = float((got - want).abs().max())
+        rel = err / float(x.abs().max())
+        batch = x.shape[0]
+        alone_equal = 0
+        if batch > 1:
+            for i in sorted({0, batch // 2, batch - 1}):
+                alone = blur(x[i:i + 1], taps, axis)
+                if not torch.equal(alone[0], got[i]):
+                    d = float((alone[0] - got[i]).abs().max())
+                    raise AssertionError(f"gaussian_blur {name}: row {i} "
+                                         f"alone differs from the batch's "
+                                         f"by {d:.3e}")
+                alone_equal += 1
+        ms = cuda_ms(lambda: blur(x, taps, axis))
+        p_ms = cuda_ms(lambda: filters.blur_plain(x, taps, axis),
+                       PLAIN_REPS, gap_free=False)
+        radius = (len(taps) - 1) // 2
+        moved = torch.movedim(x, axis, -1)
+        padded = filters.reflect_pad(moved.reshape(-1, 1, moved.shape[-1]),
+                                     radius, radius).contiguous()
+        w = torch.as_tensor(taps, device=dev).reshape(1, 1, -1)
+        lib_ms = cuda_ms(lambda: F.conv1d(padded, w), PLAIN_REPS)
+        # x read and out written once; a multiply and an add per tap and
+        # output
+        outputs = x.numel()
+        bound, bound_by = bound_ms(8 * outputs, 2 * len(taps) * outputs)
+        print(f"gaussian_blur {name}: shape {tuple(x.shape)} axis {axis} "
+              f"{len(taps)} taps max|diff|/max|x|={rel:.3e} rows alone "
+              f"bit-equal {alone_equal} kernel {ms:.5f} ms plain "
+              f"{p_ms:.4f} ms F.conv1d {lib_ms:.4f} ms bound {bound:.5f} ms "
+              f"({bound_by})")
+        if not rel <= BLUR_TOL:
+            raise AssertionError(f"gaussian_blur {name}: max |diff| / "
+                                 f"max|x| {rel} > {BLUR_TOL}")
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, rel)
+        rows[name] = (tuple(x.shape), len(taps), ms, p_ms, lib_ms, bound,
+                      bound_by)
+    return worst, worst_rel, rows
+
+
+@contextlib.contextmanager
+def substituted(module, name: str, stand_in):
+    """Within the block ``module.name`` is ``stand_in``."""
+    real = getattr(module, name)
+    setattr(module, name, stand_in)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def irfft_rows(batch: int = BLUR_BATCH, bins: int = 513,
+               frames: int = 130) -> dict:
+    """cuFFT's C2R on (batch, bins, frames) random spectra whose DC and
+    Nyquist bins have imaginary parts, as the noise stems' do: max |diff|
+    / peak of row 0 in the batch against row 0 alone, raw and through
+    stft.hermitian_edges (what istft hands the transform)."""
+    rng = np.random.default_rng(13)
+    S = torch.complex(*(torch.as_tensor(rng.standard_normal(
+        (batch, bins, frames)).astype(np.float32), device="cuda")
+        for _ in range(2)))
+    n = 2 * (bins - 1)
+    out = {}
+    for name, prep in (("raw", lambda z: z),
+                       ("hermitian_edges", stft.hermitian_edges)):
+        together = torch.fft.irfft(prep(S), n=n, dim=-2)[0]
+        alone = torch.fft.irfft(prep(S[:1]), n=n, dim=-2)[0]
+        out[name] = float((together - alone).abs().max()
+                          / alone.abs().max())
+    print(f"irfft (cuFFT C2R) of {batch} x {bins} x {frames} spectra with "
+          f"imaginary DC and Nyquist parts: row 0 in the batch vs alone, "
+          f"max|diff|/peak raw {out['raw']:.3e}, through hermitian_edges "
+          f"{out['hermitian_edges']:.3e}")
+    return out
+
+
+def golden_f0_cents(ours, golden, sr: int):
+    """F0 RMSE in cents of a render against its golden, both tracked by
+    the port's track_pitch at dt = 256 / sr, over the frames voiced in
+    both; with the count of those frames."""
+    f0_g = pitch.track_pitch(np.asarray(golden, np.float32), sr, 256 / sr)
+    f0_o = pitch.track_pitch(np.asarray(ours, np.float32), sr, 256 / sr)
+    voiced = (f0_g > 0) & (f0_o > 0)
+    n = int(voiced.sum())
+    return (f0_rmse_cents(f0_o[voiced], f0_g[voiced]) if n else None), n
+
+
+def hold_f0(name: str, ours, golden, sr: int) -> str:
+    """tests/test_golden.py's pitch gate for the port's render of golden
+    config ``name``: raises over F0_BUDGET_CENTS; returns the reading."""
+    cents, frames = golden_f0_cents(ours, golden, sr)
+    if name in F0_UNSTABLE:
+        return (f"F0 exempt ({cents:.1f} cents over {frames} frames)"
+                if frames else "F0 exempt (no frame voiced in both)")
+    if frames < F0_MIN_FRAMES:
+        return f"F0 not held ({frames} frames voiced in both)"
+    if not cents <= F0_BUDGET_CENTS:
+        raise AssertionError(f"render {name}: F0 RMSE {cents:.2f} cents over "
+                             f"the {F0_BUDGET_CENTS} cent budget")
+    return (f"F0 RMSE {cents:.2f} cents over {frames} frames (budget "
+            f"{F0_BUDGET_CENTS:.0f})")
+
+
 def _golden_configs():
     spec = importlib.util.spec_from_file_location(
         "make_goldens", REPO / "tools" / "make_goldens.py")
@@ -818,10 +1045,15 @@ def _launches():
             cascade_kernel.one_pole_cascade.launches)
 
 
+def _blur_launches() -> int:
+    return blur_kernel.gaussian_blur.launches
+
+
 def render_slice(tmp: Path):
     """Render every golden config and the heavy stack twice through the
-    CLI on CUDA; checks the second pass's outputs and returns the warm
-    per-note seconds and (pulse, cascade) launches per note."""
+    CLI on CUDA; checks the second pass's outputs (LSD and F0 to the
+    golden) and returns the warm per-note seconds and (pulse, cascade,
+    blur) launches per note."""
     os.environ["GOOFER_TPU_TORCH_DEVICE"] = "cuda"
     for kind in ("ref", "voice"):
         src = REPO / "tests" / "golden" / kind
@@ -838,7 +1070,7 @@ def render_slice(tmp: Path):
         for kind, (name, *args) in configs:
             out = tmp / f"out_{name}.wav"
             argv = [str(tmp / f"{kind}.wav"), str(out)] + [str(a) for a in args]
-            before = _launches()
+            before = _launches() + (_blur_launches(),)
             t0 = time.perf_counter()
             rc = cli.main(argv)
             dt = time.perf_counter() - t0
@@ -847,14 +1079,18 @@ def render_slice(tmp: Path):
             if rep == 0:
                 continue
             warm[name] = dt
-            per_note[name] = tuple(b - a for a, b in zip(before, _launches()))
+            per_note[name] = tuple(b - a for a, b in zip(
+                before, _launches() + (_blur_launches(),)))
             if name in CASCADE_CONFIGS and per_note[name][1] == 0:
                 raise AssertionError(f"render {name}: no cascade launch")
+            if per_note[name][2] == 0:
+                raise AssertionError(f"render {name}: no blur launch")
             ours, sr = read_wav(out)
             if not np.isfinite(ours).all():
                 raise AssertionError(f"render {name}: non-finite output")
             note = (f"warm {dt * 1e3:.1f} ms, launches per note: pulse "
-                    f"{per_note[name][0]} cascade {per_note[name][1]}")
+                    f"{per_note[name][0]} cascade {per_note[name][1]} blur "
+                    f"{per_note[name][2]}")
             if name == HEAVY[0]:
                 print(f"render {name}: {len(ours)} samples, {note}")
                 continue
@@ -865,8 +1101,9 @@ def render_slice(tmp: Path):
                                      f"at {sr} Hz, golden {len(golden)}")
             lsd = lsd_db(np.asarray(ours, np.float32),
                          np.asarray(golden, np.float32), sr)
+            f0_note = hold_f0(name, ours, golden, sr)
             print(f"render {name}: {len(ours)} samples, LSD {lsd:.3f} dB "
-                  f"(budget {LSD_BUDGET_DB[name]:.2f}), {note}")
+                  f"(budget {LSD_BUDGET_DB[name]:.2f}), {f0_note}, {note}")
             if not lsd <= LSD_BUDGET_DB[name]:
                 raise AssertionError(f"render {name}: LSD {lsd} dB over "
                                      f"budget {LSD_BUDGET_DB[name]}")
@@ -925,8 +1162,7 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
     if cli.main(argv) != 0:
         raise AssertionError(f"profile {name}: cli rc != 0")
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             if cli.main(argv) != 0:
@@ -941,6 +1177,7 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
 
     cascade_us = kernel_us("one_pole_cascade_kernel")
     pulse_us = kernel_us("pulse_accumulate_kernel")
+    blur_us = kernel_us("blur_rows_kernel") + kernel_us("blur_cols_kernel")
     out = {
         "render_ms": wall_ms / reps,
         "device_busy_ms": busy_us / 1e3 / reps,
@@ -952,12 +1189,14 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
         "pulse_share": pulse_us / busy_us,
         "pulse_launches": sum("pulse_accumulate_kernel" in e.name
                               for e in kernels) / reps,
+        "blur_ms": blur_us / 1e3 / reps,
+        "blur_share": blur_us / busy_us,
         "table_build_kernels": sorted({e.name[:80] for e in kernels if any(
             k in e.name for k in TABLE_BUILD_KERNELS)}),
     }
-    if out["cascade_ms"] <= 0.0 or out["pulse_ms"] <= 0.0:
-        raise AssertionError(f"profile {name}: no cascade or pulse kernel "
-                             "on the device")
+    if min(out["cascade_ms"], out["pulse_ms"], out["blur_ms"]) <= 0.0:
+        raise AssertionError(f"profile {name}: no cascade, pulse or blur "
+                             "kernel on the device")
     print(f"profile {name} ({reps} warm renders): render "
           f"{out['render_ms']:.3f} ms per note, device busy "
           f"{out['device_busy_ms']:.3f} ms per note, idle share "
@@ -966,7 +1205,9 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
           f"{out['cascade_ms']:.4f} ms per note = "
           f"{out['cascade_share']:.3f} of device busy, pulse kernel "
           f"{out['pulse_ms']:.4f} ms per note = {out['pulse_share']:.3f} "
-          f"of device busy in {out['pulse_launches']:.1f} launches; "
+          f"of device busy in {out['pulse_launches']:.1f} launches, blur "
+          f"kernel {out['blur_ms']:.4f} ms per note = "
+          f"{out['blur_share']:.3f} of device busy; "
           f"table-build kernels: {out['table_build_kernels'] or 'none'}")
     return out
 
@@ -1035,10 +1276,13 @@ def _hold(name, got, want, quiet: bool, floor: float = 0.0):
     return float(d.max()), lsd
 
 
-def check_phrase_rows(name, notes, picks):
+def check_phrase_rows(name, notes, picks, strict: bool = False):
     """Rows ``picks`` of the phrase against the same notes rendered alone
     through render_note with the same (seed, index) key; returns the worst
-    (max|diff|/peak, LSD) with the noise zeroed and with it on."""
+    (max|diff|/peak, LSD) with the noise zeroed and with it on.  With
+    ``strict`` the rows with the noise on are held to the noise-zeroed
+    budget too: a row draws from its own key alone, so nothing but
+    rounding that follows the batch may move it."""
     dev = torch.device("cuda")
     worst = {}
     for quiet in (True, False):
@@ -1054,12 +1298,13 @@ def check_phrase_rows(name, notes, picks):
                                            (1, i), dev).cpu().numpy(),
                                alone, SR)
             errs.append(_hold(f"phrase {name} note {i}", outs[i], alone,
-                              quiet, floor))
+                              quiet or strict, floor))
         worst[quiet] = tuple(max(e[j] for e in errs) for j in (0, 1))
     print(f"phrase {name}: rows {list(picks)} vs the note alone: noise "
           f"zeroed max|diff|/peak {worst[True][0]:.3e} LSD "
           f"{worst[True][1]:.4f} dB; noise on max|diff|/peak "
-          f"{worst[False][0]:.3e} LSD {worst[False][1]:.4f} dB")
+          f"{worst[False][0]:.3e} LSD {worst[False][1]:.4f} dB, held to the "
+          f"{'noise-zeroed' if strict else 'seed-to-seed'} budget")
     return worst
 
 
@@ -1116,10 +1361,14 @@ def phrase_slice(tmp: Path) -> dict:
     pulse_kernel.pulse_accumulate.launches = 0
     cascade_kernel.one_pole_cascade.launches = 0
     pcms, launched = {}, {}
+
+    def counts():
+        return _launches() + (_blur_launches(),)
+
     for name, notes in phrases.items():
-        before = _launches()
+        before = counts()
         pcms[name] = phrase.render_phrase(notes, pcm16=True)
-        launched[name] = [b - a for a, b in zip(before, _launches())]
+        launched[name] = [b - a for a, b in zip(before, counts())]
     out = {"launches": _launches()}
 
     for name, notes in phrases.items():
@@ -1127,18 +1376,18 @@ def phrase_slice(tmp: Path) -> dict:
         planned, _ = phrase.plan_phrase(notes)
         groups = phrase.group_planned(planned)
         # launches one note of each group makes alone
-        want = [0, 0]
+        want = [0, 0, 0]
         for (rs, _), members in groups.items():
             m = members[0]
-            before = _launches()
+            before = counts()
             render_note(rs, m.arrays, m.scalars, 0, dev)
-            want = [w + b - a for w, a, b in zip(want, before, _launches())]
+            want = [w + b - a for w, a, b in zip(want, before, counts())]
         got, pcm = launched[name], pcms[name]
         if got != want:
             raise AssertionError(
-                f"phrase {name}: {got[0]} pulse and {got[1]} cascade "
-                f"launches for {len(groups)} groups, expected {want}: one "
-                "per pass per group")
+                f"phrase {name}: {got[0]} pulse, {got[1]} cascade and "
+                f"{got[2]} blur launches for {len(groups)} groups, expected "
+                f"{want}: one per pass per group")
         if name == "a" and len(groups) != 2:
             raise AssertionError(f"phrase a: {len(groups)} groups, not 2")
         if name == "c" and not (len(groups) < len(notes)
@@ -1159,8 +1408,7 @@ def phrase_slice(tmp: Path) -> dict:
         nofetch_ms = _median_ms(
             lambda: phrase.render_phrase(notes, pcm16=True, fetch=False), 7)
         reps = 3
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 phrase.render_phrase(notes, pcm16=True)
@@ -1176,6 +1424,7 @@ def phrase_slice(tmp: Path) -> dict:
             "notes": len(notes), "audio_s": audio_s, "groups": len(groups),
             "batch_sizes": [len(m) for m in groups.values()],
             "pulse_launches": got[0], "cascade_launches": got[1],
+            "blur_launches": got[2],
             "full_ms": full_ms, "nofetch_ms": nofetch_ms,
             "x_realtime": audio_s * 1e3 / full_ms,
             "x_realtime_nofetch": audio_s * 1e3 / nofetch_ms,
@@ -1184,23 +1433,44 @@ def phrase_slice(tmp: Path) -> dict:
             "device_kernels": len(kernels) / reps,
             "pulse_ms": kernel_ms("pulse_accumulate_kernel"),
             "cascade_ms": kernel_ms("one_pole_cascade_kernel"),
+            "blur_ms": (kernel_ms("blur_rows_kernel")
+                        + kernel_ms("blur_cols_kernel")),
             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
         }
         r = out[name]
         print(f"phrase {name}: {r['notes']} notes, {audio_s:.2f} s of audio, "
               f"{r['groups']} groups of {r['batch_sizes']} notes, launches "
-              f"per phrase: pulse {got[0]} cascade {got[1]}; warm "
+              f"per phrase: pulse {got[0]} cascade {got[1]} blur {got[2]}; "
+              f"warm "
               f"{full_ms:.3f} ms ({r['x_realtime']:.1f} x realtime), without "
               f"the copy to the host {nofetch_ms:.3f} ms "
               f"({r['x_realtime_nofetch']:.1f} x); profiled: device busy "
               f"{r['device_busy_ms']:.3f} ms per phrase, idle share "
               f"{r['idle_share']:.3f}, device kernels per phrase "
               f"{r['device_kernels']:.1f}, pulse kernel {r['pulse_ms']:.4f} "
-              f"ms, cascade kernel {r['cascade_ms']:.4f} ms; peak device "
+              f"ms, cascade kernel {r['cascade_ms']:.4f} ms, blur kernel "
+              f"{r['blur_ms']:.4f} ms; peak device "
               f"memory so far {r['peak_mib']:.0f} MiB")
 
     check_phrase_rows("a", phrases["a"], (0, 13, 49, 50, 96))
-    check_phrase_rows("b", phrases["b"], (0, 7, 79))
+    # (b)'s rows with the noise on, as the port renders them (held to the
+    # noise-zeroed budget) and, printed beside, with each of the two
+    # batch-dependent roundings put back: cuDNN's conv1d for the blur, and
+    # cuFFT's C2R reading the DC and Nyquist bins' imaginary parts
+    readings = {"irfft": irfft_rows()}
+    with substituted(filters, "gaussian_blur", filters.blur_plain):
+        readings["plain_blur"] = check_phrase_rows(
+            "b with the plain (cuDNN) blur", phrases["b"], (0, 7, 79))
+    with substituted(stft, "hermitian_edges", lambda S: S):
+        readings["raw_c2r"] = check_phrase_rows(
+            "b with the DC and Nyquist imaginary parts left to cuFFT",
+            phrases["b"], (0, 7, 79))
+    readings["port"] = check_phrase_rows("b", phrases["b"], (0, 7, 79),
+                                         strict=True)
+    out["b"]["rows_vs_alone_noise_on"] = {
+        k: v if k == "irfft" else {"max_diff_over_peak": v[False][0],
+                                   "lsd_db": v[False][1]}
+        for k, v in readings.items()}
     check_phrase_buckets("c", phrases["c"])
 
     # the 97 notes of (a) one by one, in this process
@@ -1475,8 +1745,7 @@ def check_burg_kernel(cases):
         ms = cuda_ms(lambda: burg_kernel.burg_lpc(frames, LPC_ORDER))
         p_ms = cuda_ms(lambda: formants.burg_coeffs_plain(frames, LPC_ORDER),
                        PLAIN_REPS, gap_free=False)
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             formants.burg_coeffs_plain(frames, LPC_ORDER)
             torch.cuda.synchronize()
         p_kernels = len(device_busy(prof)[1])
@@ -1629,12 +1898,13 @@ def render_goldens_from_wav(tmp: Path, kind: str) -> None:
     """The goldens of source ``kind`` through the CLI on CUDA from a fresh
     directory that holds the source WAV alone: the first render extracts
     and saves the .goofy, and every output is held to its golden's LSD
-    budget."""
+    budget and pitch gate."""
     work = tmp / f"fresh_{kind}"
     work.mkdir()
     src = work / "src.wav"
     shutil.copy(REPO / "tests" / "golden" / kind / "src.wav", src)
     before = _analysis_launches()
+    renders = []
     for k, (name, *args) in _golden_configs():
         if k != kind:
             continue
@@ -1648,13 +1918,7 @@ def render_goldens_from_wav(tmp: Path, kind: str) -> None:
                 ours).all():
             raise AssertionError(f"render {name} from the WAV: {len(ours)} "
                                  f"samples at {sr} Hz, golden {len(golden)}")
-        lsd = lsd_db(np.asarray(ours, np.float32),
-                     np.asarray(golden, np.float32), sr)
-        print(f"render {name} from the port's own extraction: LSD "
-              f"{lsd:.3f} dB (budget {LSD_BUDGET_DB[name]:.2f})")
-        if not lsd <= LSD_BUDGET_DB[name]:
-            raise AssertionError(f"render {name} from the WAV: LSD {lsd} dB "
-                                 f"over budget {LSD_BUDGET_DB[name]}")
+        renders.append((name, ours, golden, sr))
     if not (work / "src_features.goofy").exists():
         raise AssertionError(f"{kind}: the first render saved no .goofy")
     ran = [b - a for a, b in zip(before, _analysis_launches())]
@@ -1662,6 +1926,16 @@ def render_goldens_from_wav(tmp: Path, kind: str) -> None:
         raise AssertionError(f"{kind}: the renders extracted with {ran} "
                              "Viterbi, root and Burg launches, expected one "
                              "of each (the first render only)")
+    # after the launch check: the pitch gate tracks on the card too
+    for name, ours, golden, sr in renders:
+        lsd = lsd_db(np.asarray(ours, np.float32),
+                     np.asarray(golden, np.float32), sr)
+        f0_note = hold_f0(name, ours, golden, sr)
+        print(f"render {name} from the port's own extraction: LSD "
+              f"{lsd:.3f} dB (budget {LSD_BUDGET_DB[name]:.2f}), {f0_note}")
+        if not lsd <= LSD_BUDGET_DB[name]:
+            raise AssertionError(f"render {name} from the WAV: LSD {lsd} dB "
+                                 f"over budget {LSD_BUDGET_DB[name]}")
 
 
 def check_real_voice(feats) -> None:
@@ -1797,8 +2071,7 @@ def analysis_slice(tmp: Path) -> dict:
     extract_ms = _median_ms(extract, 5)
     folder_ms = _median_ms(folder, 3, warm=1)
     reps = 3
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             extract()
@@ -2710,8 +2983,7 @@ def parallel_slice(tmp: Path, dev: str = "cuda", notes: int | None = None,
                   f"{diffs[m, pname][1]:.4f} dB" for m in meshes))
     if dev == "cuda":
         profile_reps = 3
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             for _ in range(profile_reps):
                 phrase.render_phrase(phrases["b"], pcm16=True,
@@ -2767,6 +3039,241 @@ def parallel_slice(tmp: Path, dev: str = "cuda", notes: int | None = None,
     return out
 
 
+SELFTEST = REPO / "examples" / "engine_selftest_torch.py"
+LAUNCHER = REPO / "launchers" / "goofer-sampler-torch.sh"
+# a plain note (no flag) for the installed layout: the pulse and blur
+# kernels and the WAV codec
+PLAIN_NOTE = ("C4", 100, "", 0, 500, 60, 0, 100, 0, "!120", "AA")
+# libraries the plain note builds: its two kernels and the WAV codec
+PLAIN_NOTE_LIBS = ("pulse_accumulate", "gaussian_blur", "wavcodec")
+
+
+def package_files() -> list[Path]:
+    """The port's files as pyproject.toml ships them, relative to the
+    repository: every module of goofer_tpu_torch's packages and the files
+    its package data selects."""
+    import tomllib
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "goofer_tpu_torch"]
+    pkg = REPO / "goofer_tpu_torch"
+    files = set(pkg.rglob("*.py"))
+    for pattern in globs:
+        files.update(pkg.glob(pattern))
+    return sorted(p.relative_to(REPO) for p in files)
+
+
+def set_writable(root: Path, writable: bool) -> None:
+    """Add or take away every write permission under ``root``."""
+    for p in [root, *root.rglob("*")]:
+        mode = p.stat().st_mode
+        p.chmod(mode | 0o200 if writable else mode & ~0o222)
+
+
+def installed_copy(dest: Path) -> list[Path]:
+    """package_files() copied under ``dest``, made read-only: the layout of
+    an installed port, with no setuptools or pip involved.  Returns the
+    files of the copy."""
+    for rel in package_files():
+        (dest / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(REPO / rel, dest / rel)
+    set_writable(dest, False)
+    return sorted(dest.rglob("*"))
+
+
+def installed_env(copy: Path, cache: Path, device: str) -> dict:
+    """The environment of a process that imports the installed copy alone
+    and keeps its builds under ``cache``."""
+    return dict(os.environ, PYTHONPATH=str(copy), XDG_CACHE_HOME=str(cache),
+                PYTHONDONTWRITEBYTECODE="1", **{config.DEVICE_ENV: device})
+
+
+def logged_launches(stderr: str) -> dict:
+    """The counts of the CLI's last "Kernel launches:" log line."""
+    lines = [ln for ln in stderr.splitlines()
+             if ln.startswith("Kernel launches:")]
+    if not lines:
+        raise AssertionError(f"no launch counts logged:\n{stderr[-2000:]}")
+    return {name: int(n) for name, n in (
+        item.strip().rsplit(" ", 1)
+        for item in lines[-1].split(":", 1)[1].split(","))}
+
+
+def run_cli(argv: list, cwd: Path, env: dict, what: str):
+    """One subprocess; raises with its output unless it exits 0."""
+    proc = subprocess.run(argv, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return proc
+
+
+def run_selftest(wav: Path, device: str):
+    """examples/engine_selftest_torch.py's main on ``wav`` on ``device``
+    in this process; returns its printed lines and the launches it made
+    (pulse, cascade, Viterbi, roots, Burg, blur)."""
+    import contextlib
+    import io
+
+    spec = importlib.util.spec_from_file_location("engine_selftest_torch",
+                                                  SELFTEST)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    os.environ[config.DEVICE_ENV] = device
+    before = _all_launches() + (_blur_launches(),)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = mod.main([str(wav)])
+    after = _all_launches() + (_blur_launches(),)
+    if rc != 0:
+        raise AssertionError(f"self-test on {device}: rc {rc}")
+    return (printed.getvalue().splitlines(),
+            tuple(b - a for a, b in zip(before, after)))
+
+
+def surface_slice(tmp: Path, heavy_blur: int) -> dict:
+    """The port's public surface on the card: the OpenUtau launcher, the
+    engine self-test and an installed copy of the package.
+
+    Launcher: launchers/goofer-sampler-torch.sh with the heavy note's 13
+    arguments on the vendored voice source, run from another directory,
+    against ``python -m goofer_tpu_torch.cli`` with the same arguments:
+    equal at int16, and each logs 4 pulse, 5 cascade and ``heavy_blur``
+    blur launches.  Self-test: examples/engine_selftest_torch.py on a copy
+    of _input.wav, on the card (four finite stems; the Viterbi, root, Burg
+    and pulse kernels launched) and on the CPU; the reconstruct stems held
+    as the facade's noisy stems are (LSD <= max(1 dB, the card's
+    seed-to-seed + 0.5 dB)).  Installed layout: package_files() copied
+    read-only into a temporary directory, a plain note rendered on the
+    card through that copy's CLI with XDG_CACHE_HOME on a scratch
+    directory: its kernels and codec built there, nothing written into
+    the copy, the WAV equal at int16 to the in-tree render."""
+    import goofer_tpu_torch.compat as gf
+
+    t0 = time.perf_counter()
+    out = {}
+    work = tmp / "surface"
+    work.mkdir()
+    src = work / "voice.wav"
+    shutil.copy(REPO / "tests" / "golden" / "voice" / "src.wav", src)
+    shutil.copy(REPO / "tests" / "golden" / "voice" / "src_features.goofy",
+                work / "voice_features.goofy")
+    args = [str(a) for a in HEAVY[1:]]
+    # the launcher's python3 is this interpreter
+    env = dict(os.environ, **{config.DEVICE_ENV: "cuda"}, PATH=os.pathsep.join(
+        [os.path.dirname(sys.executable), os.environ.get("PATH", "")]))
+    by_launcher = run_cli([str(LAUNCHER), str(src), str(work / "l.wav")]
+                          + args, work, env, "launcher")
+    by_module = run_cli([sys.executable, "-m", "goofer_tpu_torch.cli",
+                         str(src), str(work / "m.wav")] + args, REPO, env,
+                        "python -m goofer_tpu_torch.cli")
+    pcm_l, pcm_m = read_pcm(work / "l.wav"), read_pcm(work / "m.wav")
+    if pcm_l.dtype != np.int16 or not np.array_equal(pcm_l, pcm_m):
+        raise AssertionError("launcher: its WAV differs from python -m "
+                             "goofer_tpu_torch.cli's")
+    want = {"pulse_accumulate": HEAVY_PULSE_LAUNCHES,
+            "one_pole_cascade": HEAVY_CASCADE_LAUNCHES,
+            "gaussian_blur": heavy_blur, "pitch_viterbi": 0, "lpc_roots": 0,
+            "burg_lpc": 0}
+    for what, proc in (("launcher", by_launcher),
+                       ("python -m", by_module)):
+        got = logged_launches(proc.stderr)
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+    out["launcher_launches"] = want
+    print(f"surface launcher: {LAUNCHER.relative_to(REPO)} from another "
+          f"directory, heavy note ({len(pcm_l)} samples) equal at int16 to "
+          f"python -m goofer_tpu_torch.cli's; launches logged by each: "
+          + ", ".join(f"{k} {v}" for k, v in want.items()))
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        d = work / f"selftest_{device}"
+        d.mkdir()
+        wav = d / "_input.wav"
+        shutil.copy(REPO / "_input.wav", wav)
+        lines, launched = run_selftest(wav, device)
+        stems = {}
+        for tag in ("reconstruct", "harmonic", "unvoiced", "breathiness"):
+            y, sr = read_wav(d / f"_input_{tag}.wav")
+            if not np.isfinite(y).all() or len(y) != len(read_wav(wav)[0]):
+                raise AssertionError(f"self-test on {device}: stem {tag} "
+                                     "non-finite or of another length")
+            stems[tag] = np.asarray(y, np.float32)
+        runs[device] = (lines, launched, stems)
+    lines, launched, stems = runs["cuda"]
+    if min(launched[0], *launched[2:5]) <= 0:
+        raise AssertionError(f"self-test: launches pulse {launched[0]}, "
+                             f"Viterbi {launched[2]}, roots {launched[3]}, "
+                             f"Burg {launched[4]}: each must run")
+    y = read_wav_mono(REPO / "_input.wav")[0]
+    os.environ[config.DEVICE_ENV] = "cuda"
+    feats = gf.extract_features(y, SR, n_fft=config.ENGINE_N_FFT,
+                                hop_length=config.ENGINE_HOP)
+    seeds = [gf.synthesize(*feats[:3], y, SR, n_fft=config.ENGINE_N_FFT,
+                           hop_length=config.ENGINE_HOP, formants=feats[3],
+                           seed=seed)[0] for seed in (0, 1)]
+    floor = lsd_db(seeds[1], seeds[0], SR)
+    card_cpu = _hold("self-test reconstruct card vs CPU",
+                     stems["reconstruct"], runs["cpu"][2]["reconstruct"],
+                     False, floor)
+    timed = [ln for ln in lines if ln.startswith(
+        ("Feature extraction", "Synthesis", "Time taken"))]
+    realtime = float(timed[-1].split("(")[1].split("x")[0])
+    out["selftest"] = {
+        "printed": timed, "x_realtime": realtime,
+        "launches": dict(zip(("pulse", "cascade", "viterbi", "roots",
+                              "burg", "blur"), launched)),
+        "reconstruct_card_vs_cpu_lsd_db": card_cpu[1],
+        "card_seed_to_seed_lsd_db": floor}
+    print(f"surface self-test: {SELFTEST.relative_to(REPO)} on _input.wav "
+          f"at n_fft {config.ENGINE_N_FFT}, hop {config.ENGINE_HOP}: "
+          + "; ".join(timed) + "; four finite stems; launches "
+          + ", ".join(f"{k} {v}" for k, v in out["selftest"][
+              "launches"].items())
+          + f"; reconstruct card vs CPU LSD {card_cpu[1]:.4f} dB (card "
+          f"seed-to-seed {floor:.3f} dB)")
+
+    copy, cache = work / "installed", work / "cache"
+    copy.mkdir()
+    files = installed_copy(copy)
+    try:
+        note = [str(a) for a in PLAIN_NOTE]
+        proc = run_cli([sys.executable, "-m", "goofer_tpu_torch.cli",
+                        str(src), str(work / "i.wav")] + note, work,
+                       installed_env(copy, cache, "cuda"), "installed copy")
+        if sorted(copy.rglob("*")) != files:
+            raise AssertionError("installed copy: the render wrote into the "
+                                 "package")
+    finally:
+        set_writable(copy, True)
+    libs = sorted(p.name for p in (cache / "goofer_tpu_torch").glob("*.so"))
+    missing = [n for n in PLAIN_NOTE_LIBS
+               if not any(lib.startswith(f"lib{n}-") for lib in libs)]
+    if missing:
+        raise AssertionError(f"installed copy: {missing} not built under "
+                             f"XDG_CACHE_HOME ({libs})")
+    GooferResampler(src, work / "t.wav", *PLAIN_NOTE, device="cuda")
+    pcm_i, pcm_t = read_pcm(work / "i.wav"), read_pcm(work / "t.wav")
+    if pcm_i.dtype != np.int16 or not np.array_equal(pcm_i, pcm_t):
+        raise AssertionError("installed copy: its WAV differs from the "
+                             "in-tree render")
+    out["installed"] = {"files": len(package_files()), "built": libs,
+                        "launches": logged_launches(proc.stderr)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"surface installed layout: {len(package_files())} files as "
+          f"pyproject.toml ships them, read-only; plain note through the "
+          f"copy's CLI built {libs} under XDG_CACHE_HOME, wrote nothing "
+          f"into the copy, WAV equal at int16 to the in-tree render "
+          f"({len(pcm_i)} samples); launches "
+          + ", ".join(f"{k} {v}" for k, v in out["installed"][
+              "launches"].items())
+          + f"; the phase took {out['seconds']:.2f} s")
+    return out
+
+
 def build_codecs() -> tuple[list[Path], float]:
     """Build the two host codec libraries (g++), one thread each; returns
     their paths and the seconds taken."""
@@ -2789,7 +3296,7 @@ def main() -> int:
         codecs = pool.submit(build_codecs)
         libs = _build.build_all([
             pulse_kernel.KERNEL, cascade_kernel.KERNEL, viterbi_kernel.KERNEL,
-            lpc_roots_kernel.KERNEL, burg_kernel.KERNEL])
+            lpc_roots_kernel.KERNEL, burg_kernel.KERNEL, blur_kernel.KERNEL])
         codec_libs, codec_s = codecs.result()
     print(f"build {', '.join(p.name for p in libs)}: "
           f"{time.perf_counter() - t0:.2f} s")
@@ -2801,6 +3308,7 @@ def main() -> int:
     c_err, c_rel, c_rows = check_cascade_kernel(
         cascade_cases() + phrase_cascade_cases() + phrase_cascade_cases(20)
         + facade_cascade_cases())
+    bl_err, bl_rel, bl_rows = check_blur_kernel(blur_cases())
     dev = torch.device("cuda")
     v_err, v_bad, v_rows = check_viterbi_kernel(viterbi_cases(dev))
     frame_cases = lpc_cases(dev)
@@ -2810,19 +3318,46 @@ def main() -> int:
 
     pulse_kernel.pulse_accumulate.launches = 0
     cascade_kernel.one_pole_cascade.launches = 0
+    blur_kernel.gaussian_blur.launches = 0
+    blur_by_phase = {}
+
+    def blurred(phase: str, start: int) -> None:
+        blur_by_phase[phase] = _blur_launches() - start
+        if blur_by_phase[phase] <= 0:
+            raise AssertionError(f"the {phase} path never launched the blur "
+                                 "kernel")
+
     with tempfile.TemporaryDirectory() as tmp:
         warm, per_note = render_slice(Path(tmp))
         launches, c_launches = _launches()
         check_heavy(Path(tmp))
         check_flag_notes(Path(tmp))
         prof = profile_heavy(Path(tmp))
+        blurred("note", 0)
+        start = _blur_launches()
         phrases = phrase_slice(Path(tmp))
+        blurred("phrase", start)
+        start = _blur_launches()
         analysis = analysis_slice(Path(tmp))
+        blurred("analysis", start)
+        start = _blur_launches()
         served = server_slice(Path(tmp))
+        blurred("server", start)
+        start = _blur_launches()
         facade = facade_slice()
+        blurred("facade", start)
+        start = _blur_launches()
         edited = editor_slice(Path(tmp))
+        blurred("editor", start)
+        start = _blur_launches()
         codec = codec_slice(Path(tmp))
+        blurred("codec", start)
+        start = _blur_launches()
         par = parallel_slice(Path(tmp))
+        blurred("parallel", start)
+        start = _blur_launches()
+        surface = surface_slice(Path(tmp), per_note[HEAVY[0]][2])
+        blurred("surface", start)
     codec["build_s"] = codec_s
     pa_launches = par.pop("launches")
     if min(pa_launches) <= 0:
@@ -2850,7 +3385,7 @@ def main() -> int:
     if c_launches <= 0:
         raise AssertionError("the render never launched the cascade kernel")
     heavy = per_note[HEAVY[0]]
-    if heavy != (HEAVY_PULSE_LAUNCHES, HEAVY_CASCADE_LAUNCHES):
+    if heavy[:2] != (HEAVY_PULSE_LAUNCHES, HEAVY_CASCADE_LAUNCHES):
         raise AssertionError(f"heavy note: {heavy[0]} pulse and {heavy[1]} "
                              f"cascade launches, expected "
                              f"{HEAVY_PULSE_LAUNCHES} and "
@@ -2875,6 +3410,7 @@ def main() -> int:
     print(json.dumps({"editor": edited}))
     print(json.dumps({"codec": codec}))
     print(json.dumps({"parallel": par}))
+    print(json.dumps({"surface": surface}))
     def per_chunk(n_launches):
         return {"launches_per_chunk": n_launches / analysis["chunks"],
                 "chunks": analysis["chunks"],
@@ -3049,6 +3585,38 @@ def main() -> int:
         "phrase_device_ms": {k: v["cascade_ms"] for k, v in phrases.items()},
         "heavy_note_device_ms": prof["cascade_ms"],
         "heavy_note_device_share": prof["cascade_share"],
+    }, {
+        "name": "gaussian_blur",
+        "route": "cuda",
+        "source": "goofer_tpu_torch/csrc/gaussian_blur.cu",
+        "replaces": "goofer_tpu/ops/filters.py:68",
+        "note": "replaces non-Pallas JAX code: _conv_valid_lastaxis (a "
+                "direct conv up to 33 taps, an FFT convolution above) "
+                "behind gaussian_blur1d; a direct in-order fmaf sum per "
+                "output, so that a row does not depend on its batch",
+        "launches": sum(blur_by_phase.values()),
+        "launches_by_path": blur_by_phase,
+        "launches_per_heavy_note": heavy[2],
+        "launches_per_phrase": {k: v["blur_launches"]
+                                for k, v in phrases.items()},
+        "max_abs_err": bl_err,
+        "max_rel_err": bl_rel,
+        "ms": bl_rows["note_s441"][2],
+        "plain_ms": bl_rows["note_s441"][3],
+        "bound_ms": bl_rows["note_s441"][5],
+        "bound_by": bl_rows["note_s441"][6],
+        "library_ms": bl_rows["note_s441"][4],
+        "library_note": "torch.nn.functional.conv1d (cuDNN) of the rows "
+                        "already reflect-padded, timed here; on the card "
+                        "the port never calls it",
+        "timed_case": "note_s441: B=1, n=48510, sigma 441, 3529 taps (pd)",
+        "ms_by_case": {k: v[2] for k, v in bl_rows.items()},
+        "plain_ms_by_case": {k: v[3] for k, v in bl_rows.items()},
+        "library_ms_by_case": {k: v[4] for k, v in bl_rows.items()},
+        "bound_ms_by_case": {k: v[5] for k, v in bl_rows.items()},
+        "phrase_device_ms": {k: v["blur_ms"] for k, v in phrases.items()},
+        "heavy_note_device_ms": prof["blur_ms"],
+        "heavy_note_device_share": prof["blur_share"],
     }] + analysis_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ Port of goofer_tpu/cli.py.  Four modes, selected as the reference does:
   voicing editor mid-render when a display exists.
 
 All run on CUDA unless $GOOFER_TPU_TORCH_DEVICE names another device;
-without CUDA they fail rather than falling back.
+without CUDA they fail rather than falling back.  A render logs how many
+times this process launched each hand kernel (0 on the CPU, where the
+plain versions run).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import sys
 from pathlib import Path
 
 from goofer_tpu_torch import config
+from goofer_tpu_torch.ops.cuda import launch_counts
 
 log = logging.getLogger("goofer_tpu_torch")
 
@@ -95,6 +98,8 @@ def main(argv=None) -> int:
     except Exception:
         log.exception("Failed to render")
         return 1
+    log.info("Kernel launches: %s", ", ".join(
+        f"{name} {n}" for name, n in launch_counts().items()))
     return 0
 
 

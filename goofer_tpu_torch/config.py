@@ -24,6 +24,14 @@ STORAGE_DTYPE = np.float16
 SAMPLER_N_FFT = 1024
 SAMPLER_HOP = SAMPLER_N_FFT // 4
 
+# Engine self-test defaults (ref: GOOFER.py:1262-1263).
+ENGINE_N_FFT = 2048
+ENGINE_HOP = ENGINE_N_FFT // 4
+
+# Voicing threshold: f0 above this many Hz counts as voiced
+# (ref: GOOFER.py:941-943, 966).
+VOICING_THRESHOLD_HZ = 75.0
+
 # f0 clipping range applied after per-sample interpolation
 # (ref: GOOFER.py:964).
 F0_CLIP_LO = 1e-5

@@ -4,12 +4,14 @@ goofer_tpu/native/__init__.py.
 ``csrc/wavcodec.cpp`` (RIFF WAV read and 16-bit PCM write) and
 ``csrc/sndcodec.cpp`` (FLAC and AIFF/AIFC decode) are byte-for-byte
 copies of goofer_tpu/native's sources.  Each is compiled by ``g++`` at
-first use into ``build/goofer_tpu_torch/lib<name>-<hash>.so``
-(ops/cuda/_build.py: the name carries a hash of the source and flags,
-the library is written through a temporary file and ``os.replace``),
-never into the package.  A failed build raises with the compiler's
-output.  MP3 decodes through the system ``libmpg123.so.0``, the decoder
-libsndfile wraps (ref: SillySampler.py:211-212).
+first use into ``lib<name>-<hash>.so`` under ops/cuda/_build.py's
+``BUILD_DIR`` (``build/goofer_tpu_torch/`` of a checkout, the user's
+cache directory for an installed package; the name carries a hash of
+the source and flags, the library is written through a temporary file
+and ``os.replace``), never into the package.  A failed build raises
+with the compiler's output.  MP3 decodes through the system
+``libmpg123.so.0``, the decoder libsndfile wraps (ref:
+SillySampler.py:211-212).
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
 """Build and load the port's native libraries.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, into
-``build/goofer_tpu_torch/`` beside the package, and loaded with
-``ctypes``; the host C++ audio codecs (``csrc/*.cpp``, see
+shared library with a plain C interface at first use, into ``BUILD_DIR``,
+and loaded with ``ctypes``; the host C++ audio codecs (``csrc/*.cpp``, see
 goofer_tpu_torch.native) are built the same way by ``g++``.  A library's
 name carries a hash of its source and flags, so an edited source is
 rebuilt and never served stale.
+
+``BUILD_DIR`` is ``build/goofer_tpu_torch/`` of a source checkout (a
+``pyproject.toml`` beside the package; the repository's ``.gitignore``
+lists ``build/``), and ``${XDG_CACHE_HOME:-~/.cache}/goofer_tpu_torch``
+for an installed package, whose own directory may be read-only.
 """
 from __future__ import annotations
 
@@ -20,7 +24,18 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "goofer_tpu_torch"
+
+
+def default_build_dir() -> Path:
+    """Where this copy of the package builds its libraries."""
+    root = Path(__file__).resolve().parents[3]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "goofer_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "goofer_tpu_torch"
+
+
+BUILD_DIR = default_build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,7 +65,7 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path, flags) -> Path:
-    """``build/goofer_tpu_torch/lib<stem>-<hash of source and flags>.so``."""
+    """``BUILD_DIR/lib<stem>-<hash of source and flags>.so``."""
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"

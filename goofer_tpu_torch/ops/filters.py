@@ -3,9 +3,13 @@
 Port of goofer_tpu/ops/filters.py, matching the reference's
 ``gaussian_filter1d`` (ref: GOOFER.py:241-261): radius
 ``int(truncate * sigma + 0.5)``, normalized taps, reflect padding,
-'valid' convolution.  Every blur is one ``conv1d`` of the reflect-padded
-rows; the JAX package's conv-vs-FFT routing existed for XLA-TPU compile
-times and has no counterpart here.
+'valid' convolution.  Every blur is one launch of the Hopper kernel
+``ops/cuda/blur_kernel.py`` (``csrc/gaussian_blur.cu``), a direct sum
+whose rows do not depend on the batch; ``blur_plain`` below, one
+``conv1d`` of the reflect-padded rows, is its plain PyTorch version,
+which the wrapper runs only for CPU tensors.  The JAX package's
+conv-vs-FFT routing existed for XLA-TPU compile times and has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from goofer_tpu_torch.ops.cuda.blur_kernel import gaussian_blur
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,15 +51,12 @@ def reflect_pad(x: torch.Tensor, left: int, right: int,
     return torch.index_select(x, dim, idx)
 
 
-def gaussian_blur1d(x: torch.Tensor, sigma: float, axis: int = -1,
-                    truncate: float = 4.0) -> torch.Tensor:
-    """Gaussian blur along ``axis`` with reflect padding (host sigma)."""
-    if sigma is None or float(sigma) <= 0.0:
-        return x
-    kernel = gaussian_kernel1d(float(sigma), truncate)
+def blur_plain(x: torch.Tensor, kernel: np.ndarray,
+               axis: int = -1) -> torch.Tensor:
+    """``x`` along ``axis`` reflect-padded by (len(kernel) - 1) / 2 a side
+    and correlated with the odd, symmetric ``kernel``: the plain version
+    of the blur kernel."""
     radius = (kernel.shape[0] - 1) // 2
-    if radius <= 0:
-        return x
     moved = torch.movedim(x, axis, -1)
     shape = moved.shape
     flat = moved.reshape(-1, 1, shape[-1])
@@ -62,6 +65,23 @@ def gaussian_blur1d(x: torch.Tensor, sigma: float, axis: int = -1,
     # symmetric taps: correlation == convolution
     out = F.conv1d(padded, w.reshape(1, 1, -1))
     return torch.movedim(out.reshape(shape), -1, axis)
+
+
+def gaussian_blur1d(x: torch.Tensor, sigma: float, axis: int = -1,
+                    truncate: float = 4.0) -> torch.Tensor:
+    """Gaussian blur along ``axis`` with reflect padding (host sigma)."""
+    if sigma is None or float(sigma) <= 0.0:
+        return x
+    kernel = gaussian_kernel1d(float(sigma), truncate)
+    if kernel.shape[0] <= 1:
+        return x
+    return gaussian_blur(x, kernel, axis)
+
+
+def gaussian_blur_freq(env: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Blur a (..., n_bins, T) spectrogram-like array along the frequency
+    axis."""
+    return gaussian_blur1d(env, sigma, axis=-2)
 
 
 def fir_decimate(x: torch.Tensor, kernel: np.ndarray,

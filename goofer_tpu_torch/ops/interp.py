@@ -2,7 +2,9 @@
 
 Port of goofer_tpu/ops/interp.py (ref interp1d, GOOFER.py:173-239):
 positions clamp to the support (edge-hold), and a fractional position
-reads two neighbouring rows with ``index_select``.
+reads two neighbouring rows with ``index_select``; ``linear_interp`` and
+``linear_interp_extrap`` are the reference's ``interp1d`` fill and
+extrapolate paths over a sorted grid.
 """
 from __future__ import annotations
 
@@ -81,3 +83,59 @@ def resample_1d(x: torch.Tensor, target_len: int) -> torch.Tensor:
 def resample_2d(x: torch.Tensor, target_len: int) -> torch.Tensor:
     """Linear resample of (n_bins, T) along the frame axis."""
     return resample_1d(x, target_len)
+
+
+def _interp(x_new: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp(x_new, x, y)``, its formula and order of operations:
+    the segment from ``searchsorted(side="right")``, a zero-width segment
+    taking its left value, the ends held outside the support."""
+    i = torch.clamp(torch.searchsorted(x, x_new, right=True), 1,
+                    len(x) - 1)
+    df = y[i] - y[i - 1]
+    dx = x[i] - x[i - 1]
+    delta = x_new - x[i - 1]
+    # np.spacing(eps) of x's float type, eps**2 exactly
+    dx0 = torch.abs(dx) <= torch.finfo(x.dtype).eps ** 2
+    f = torch.where(dx0, y[i - 1],
+                    y[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x_new < x[0], y[0], f)
+    return torch.where(x_new > x[-1], y[-1], f)
+
+
+def _as_float(*arrays) -> list[torch.Tensor]:
+    """Tensors of one float dtype (float32 unless a tensor brings
+    another), on the first tensor's device."""
+    ref = next((a for a in arrays if isinstance(a, torch.Tensor)), None)
+    dev = ref.device if ref is not None else None
+    dtype = ref.dtype if ref is not None and ref.is_floating_point() \
+        else torch.float32
+    return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
+
+
+def linear_interp(x, y, x_new, fill_value: float | None = None
+                  ) -> torch.Tensor:
+    """np.interp-alike over a sorted 1-D grid ``x``.
+
+    ``fill_value=None`` clamps outside the support (np.interp behaviour);
+    a float fills outside the support with that constant
+    (ref interp1d numeric fill, GOOFER.py:210-221)."""
+    x, y, x_new = _as_float(x, y, x_new)
+    out = _interp(x_new, x, y)
+    if fill_value is not None:
+        inside = (x_new >= x[0]) & (x_new <= x[-1])
+        out = torch.where(inside, out, float(fill_value))
+    return out
+
+
+def linear_interp_extrap(x, y, x_new) -> torch.Tensor:
+    """Linear interpolation with end-slope linear extrapolation, matching
+    the reference's fill_value='extrapolate' path (ref:
+    GOOFER.py:204-237).  Requires len(x) >= 2."""
+    x, y, x_new = _as_float(x, y, x_new)
+    out = _interp(x_new, x, y)
+    slope_left = (y[1] - y[0]) / (x[1] - x[0] + 1e-10)
+    slope_right = (y[-1] - y[-2]) / (x[-1] - x[-2] + 1e-10)
+    out = torch.where(x_new < x[0], y[0] + slope_left * (x_new - x[0]), out)
+    return torch.where(x_new > x[-1], y[-1] + slope_right * (x_new - x[-1]),
+                       out)

@@ -82,6 +82,17 @@ def _last_valid_index(valid: torch.Tensor) -> torch.Tensor:
     return torch.cummax(torch.where(valid, idx, -1), dim=-1).values
 
 
+def forward_fill(values: torch.Tensor, valid: torch.Tensor,
+                 init: float) -> torch.Tensor:
+    """values[..., i] from the most recent valid index <= i along the
+    last axis, else ``init``."""
+    ff = _last_valid_index(valid)
+    filled = torch.gather(values, -1, torch.clamp(ff, min=0))
+    return torch.where(ff >= 0, filled,
+                       torch.tensor(init, dtype=values.dtype,
+                                    device=values.device))
+
+
 def _compact_onset_tables(onset: torch.Tensor, f0: torch.Tensor,
                           valid_f0: torch.Tensor, fallback_f0: float,
                           sr: float, Ra: float, Rg: float, Rk: float,

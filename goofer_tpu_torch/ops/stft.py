@@ -8,7 +8,9 @@ Port of goofer_tpu/ops/stft.py, same framing contract
   frame count = max(1, 1 + (len(padded) - n_fft) // hop).
 * synthesis: irfft per frame, windowed overlap-add normalized by the
   accumulated squared window (skipping samples where it is ~0), center
-  trim, then pad/cut to the requested length.
+  trim, then pad/cut to the requested length.  The irfft reads the real
+  parts of the DC and Nyquist bins alone, as NumPy's and the reference's
+  does (``hermitian_edges``).
 
 Both take a (..., n) batch of signals along the last axis.
 ``torch.stft``/``torch.istft`` are not used: ``istft`` normalizes the
@@ -100,6 +102,19 @@ def _win_sum_rows(win_sum: torch.Tensor, true_frames: torch.Tensor,
     return torch.where(r < 0, win_sum, tail)
 
 
+def hermitian_edges(S: torch.Tensor) -> torch.Tensor:
+    """(..., n_bins, T) spectra with the imaginary parts of the first and
+    last bins (DC and, n_fft being even, Nyquist) zeroed: the spectra a
+    real inverse transform can have.  pocketfft (torch and NumPy on the
+    CPU, the reference) discards those parts; cuFFT's C2R result for them
+    is undefined and changes with the batch size, and the noise stems'
+    random phases and the frequency blurs leave them nonzero."""
+    parts = torch.view_as_real(S).clone()
+    parts[..., 0, :, 1] = 0.0
+    parts[..., -1, :, 1] = 0.0
+    return torch.view_as_complex(parts)
+
+
 def istft(S: torch.Tensor, hop: int, length: int | None = None,
           true_frames: torch.Tensor | None = None,
           window: np.ndarray | None = None) -> torch.Tensor:
@@ -117,7 +132,8 @@ def istft(S: torch.Tensor, hop: int, length: int | None = None,
     num_frames = S.shape[-1]
     batch = S.shape[:-2]
     win = _window(n_fft, window, S.device)
-    frames = torch.fft.irfft(S, n=n_fft, dim=-2).float() * win[:, None]
+    frames = torch.fft.irfft(hermitian_edges(S), n=n_fft,
+                             dim=-2).float() * win[:, None]
 
     pad = n_fft // 2
     expected_len = n_fft + hop * (num_frames - 1)

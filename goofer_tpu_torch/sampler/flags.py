@@ -36,6 +36,10 @@ def note_to_midi(note: str) -> int:
     return (int(octave) + 1) * 12 + NOTE_OFFSETS[name]
 
 
+def midi_to_hz(m):
+    return 440.0 * 2.0 ** ((np.asarray(m, dtype=np.float64) - 69.0) / 12.0)
+
+
 def _clampf(v, lo, hi) -> float:
     """Scalar clamp: np.clip on Python scalars costs ~10 us each and the
     flag decode runs per note on the phrase-planning hot path."""

@@ -1,8 +1,9 @@
 """Host-side note planning: cuts, sustain loops and velocity warps as
 index/weight gather plans.
 
-A JAX-free copy of goofer_tpu/sampler/plan.py without its jnp plan
-applier (the render applies plans itself, render_core._apply_plan).
+A JAX-free copy of goofer_tpu/sampler/plan.py; ``apply_frame_plan``
+materializes a plan on a tensor on the caller's device (the batched
+render applies its (B, T') plans itself, render_core._apply_plan).
 
 The reference assembles note features with Python list surgery
 (ref: SillySampler.py:449-788).  Here the host computes, per note, small
@@ -24,6 +25,9 @@ import functools
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from goofer_tpu_torch.ops.interp import gather_lerp
 
 
 @dataclass
@@ -39,6 +43,19 @@ class FramePlan:
 
     def __len__(self) -> int:
         return len(self.pos0)
+
+
+def apply_frame_plan(src: torch.Tensor, plan: FramePlan,
+                     axis: int = -1) -> torch.Tensor:
+    """Materialize a plan along ``axis`` of ``src``, on its device."""
+    pos0, pos1, w = (torch.as_tensor(a, device=src.device)
+                     for a in (plan.pos0, plan.pos1, plan.w))
+    a = gather_lerp(src, pos0, axis=axis)
+    b = gather_lerp(src, pos1, axis=axis)
+    shape = [1] * src.ndim
+    shape[axis] = -1
+    w = w.reshape(shape)
+    return a * (1.0 - w) + b * w
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +238,23 @@ def plan_track_loop(pre: int, tail: int, desired: int, mode: str) -> FramePlan:
         w = np.concatenate([np.zeros(pre), np.full(len(p), 0.5)])
         return FramePlan(p0.astype(np.float32), p1.astype(np.float32),
                          w.astype(np.float32))
+    p0 = np.concatenate([pre_idx, pre + p])
+    return FramePlan(p0.astype(np.float32), p0.astype(np.float32),
+                     np.zeros(len(p0), dtype=np.float32))
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_sample_loop(pre: int, tail: int, desired: int) -> FramePlan:
+    """f0/mask loop: always plain tiling (ref: SillySampler.py:698-712)."""
+    pre_idx = np.arange(pre, dtype=np.float64)
+    if tail >= desired:
+        p = np.arange(desired)
+    else:
+        reps = desired // tail
+        rem = desired % tail
+        p = np.tile(np.arange(tail), reps)
+        if rem:
+            p = np.concatenate([p, np.arange(rem)])
     p0 = np.concatenate([pre_idx, pre + p])
     return FramePlan(p0.astype(np.float32), p0.astype(np.float32),
                      np.zeros(len(p0), dtype=np.float32))

@@ -41,3 +41,19 @@ def lsd_db(a: np.ndarray, b: np.ndarray, sr: int, n_fft: int = 1024,
     Sb = _smooth_spec(b[:n], sr, n_fft, hop, freq_sigma, time_sigma)
     d = 20.0 * np.log10(Sa) - 20.0 * np.log10(Sb)
     return float(np.sqrt(np.mean(d ** 2)))
+
+
+def f0_rmse_cents(f0_a: np.ndarray, f0_b: np.ndarray,
+                  voiced_only: bool = True) -> float:
+    """RMSE in cents over samples where both tracks are voiced."""
+    a = np.asarray(f0_a, dtype=np.float64)
+    b = np.asarray(f0_b, dtype=np.float64)
+    n = min(len(a), len(b))
+    a, b = a[:n], b[:n]
+    if voiced_only:
+        sel = (a > 1.0) & (b > 1.0)
+        if not np.any(sel):
+            return 0.0
+        a, b = a[sel], b[sel]
+    cents = 1200.0 * np.log2(np.maximum(a, 1e-6) / np.maximum(b, 1e-6))
+    return float(np.sqrt(np.mean(cents ** 2)))

@@ -10,13 +10,15 @@ from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 
+from chip_smoke import F0_BUDGET_CENTS, F0_MIN_FRAMES, golden_f0_cents  # noqa: E402
 from goofer_tpu_torch import cli  # noqa: E402
 from goofer_tpu_torch.utils.audio_io import read_wav  # noqa: E402
 from goofer_tpu_torch.utils.metrics import lsd_db  # noqa: E402
 
 GOLDEN = Path(__file__).parent / "golden" / "ref"
 # tests/test_golden.py's budget for these configs: the upstream
-# seed-to-seed LSD floor + 0.5 dB
+# seed-to-seed LSD floor + 0.5 dB; and its pitch gate, F0 RMSE <= 15
+# cents over the frames voiced in both (the port's track_pitch)
 BUDGET_DB = {"neutral": 0.76 + 0.5, "formant_chain": 1.04 + 0.5}
 ARGS = {
     "neutral": ["C4", "100", "", "0", "500", "60", "0", "100", "0", "!120",
@@ -45,6 +47,9 @@ def test_cli_render_within_golden_budget(src, name):
     assert np.isfinite(ours).all()
     lsd = lsd_db(np.float32(ours), np.float32(golden), sr)
     assert lsd <= BUDGET_DB[name], lsd
+    cents, frames = golden_f0_cents(ours, golden, sr)
+    assert frames >= F0_MIN_FRAMES
+    assert cents <= F0_BUDGET_CENTS, cents
 
 
 def test_cli_render_reversed_with_velocity(src):

@@ -16,7 +16,9 @@ association orders.  The pitch Viterbi kernel must equal its plain
 version exactly (both run the same float32 operations in the same order);
 the root finder's matched roots agree to 1e-4 on rows that converged, and
 the Burg coefficients to rtol 1e-3 / atol 1e-4 (another order of the
-551-term sums)."""
+551-term sums).  The blur kernel agrees with its plain version (cuDNN's
+conv1d of the reflect-padded rows, TF32 off) to 1e-5 x max|x|, and a row
+equals itself launched alone, bit for bit."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -24,6 +26,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
+    BLUR_TOL,
     BURG_ATOL,
     BURG_RTOL,
     CASCADE_TOL,
@@ -31,6 +34,9 @@ from chip_smoke import (  # noqa: E402
     ROOTS_TOL,
     _f16_track_equal,
     _formants_close,
+    _hold,
+    _render_planned,
+    blur_cases,
     cascade_cases,
     exact_phase_plain,
     facade_pulse_cases,
@@ -42,15 +48,21 @@ from chip_smoke import (  # noqa: E402
     pcm16,
     phase_margin,
     phrase_cascade_cases,
+    phrase_notes,
     phrase_pulse_cases,
     pulse_pass_args,
     seeded_candidates,
     voicebank_cuts,
 )
 from goofer_tpu_torch.analysis import features, formants, pitch  # noqa: E402
-from goofer_tpu_torch.ops import jitter, pulse, scan_iir  # noqa: E402
+from goofer_tpu_torch.ops import filters, jitter, pulse, scan_iir  # noqa: E402
 from goofer_tpu_torch.ops import noise as rnd  # noqa: E402
-from goofer_tpu_torch.ops.cuda import cascade_kernel, pulse_kernel  # noqa: E402
+from goofer_tpu_torch.ops.cuda import (  # noqa: E402
+    blur_kernel,
+    cascade_kernel,
+    pulse_kernel,
+)
+from goofer_tpu_torch.ops.cuda.blur_kernel import gaussian_blur  # noqa: E402
 from goofer_tpu_torch.ops.cuda.burg_kernel import burg_lpc  # noqa: E402
 from goofer_tpu_torch.ops.cuda.lpc_roots_kernel import lpc_roots  # noqa: E402
 from goofer_tpu_torch.ops.cuda.viterbi_kernel import pitch_viterbi  # noqa: E402
@@ -579,6 +591,112 @@ def test_burg_kernel_rows_equal_alone(dev, wlen):
     for i in range(6):
         assert torch.equal(together[i:i + 1],
                            burg_lpc(frames[i:i + 1].contiguous(), 10))
+
+
+def _hold_blur(x, sigma, axis):
+    taps = filters.gaussian_kernel1d(sigma)
+    before = gaussian_blur.launches
+    got = gaussian_blur(x, taps, axis)
+    want = filters.blur_plain(x, taps, axis)
+    torch.cuda.synchronize()
+    assert gaussian_blur.launches == before + 1
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0.0,
+                               atol=BLUR_TOL * float(x.abs().max()))
+    return got, taps
+
+
+@pytest.mark.parametrize("case", blur_cases(), ids=lambda c: c[0])
+def test_blur_kernel_matches_plain(dev, case):
+    """chip_smoke.py's cases: the heavy note's and phrase (b)'s blurs."""
+    _, x_np, sigma, axis = case
+    _hold_blur(torch.as_tensor(x_np, device=dev), sigma, axis)
+
+
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 25.0, 441.0, 882.0])
+@pytest.mark.parametrize("n", [1, 2, 5, blur_kernel.TILE - 1,
+                               blur_kernel.TILE, blur_kernel.TILE + 1,
+                               2 * blur_kernel.TILE + 3, 48510])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_blur_kernel_rows_at_tile_edges(dev, batch, n, sigma):
+    """Rows from one sample to past two tiles, windows longer than the
+    row (repeated reflection), up to the 7057 taps of the roughness
+    noise's sigma 882."""
+    rng = np.random.default_rng(n + batch)
+    x = torch.as_tensor(rng.standard_normal((batch, n)).astype(np.float32),
+                        device=dev)
+    _hold_blur(x, sigma, -1)
+
+
+@pytest.mark.parametrize("shape,axis", [((4, 513, 130), -2),
+                                        ((2, 17, 1), 1), ((513, 9), 0),
+                                        ((3, 5, 129), 1), ((2, 3, 7, 11), 1)])
+@pytest.mark.parametrize("sigma", [0.5, 1.75, 7.0])
+def test_blur_kernel_inner_axes(dev, shape, axis, sigma):
+    rng = np.random.default_rng(len(shape) * 10 + shape[0])
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                        device=dev)
+    _hold_blur(x, sigma, axis)
+
+
+@pytest.mark.parametrize("shape,axis,sigma", [
+    ((80, 33074), -1, 441.0), ((80, 8270), -1, 12.25),
+    ((80, 513, 130), -2, 0.5), ((80, 513, 344), -2, 2.0)])
+def test_blur_kernel_rows_equal_alone(dev, shape, axis, sigma):
+    """Every row of a batch of 80 equals the same row launched alone, bit
+    for bit: no tile, block or batch size enters a row's sum."""
+    x = torch.as_tensor(np.random.default_rng(80).standard_normal(
+        shape).astype(np.float32), device=dev)
+    together, taps = _hold_blur(x, sigma, axis)
+    for i in range(shape[0]):
+        assert torch.equal(together[i], gaussian_blur(x[i:i + 1], taps,
+                                                      axis)[0])
+
+
+def test_blur_wrapper_rejects_bad_inputs(dev):
+    taps = filters.gaussian_kernel1d(2.0)
+    with pytest.raises(ValueError, match="float32"):
+        gaussian_blur(torch.zeros((2, 64), device=dev).double(), taps)
+    with pytest.raises(ValueError, match="odd"):
+        gaussian_blur(torch.zeros((2, 64), device=dev), taps[:-1])
+    with pytest.raises(ValueError, match="odd"):
+        gaussian_blur(torch.zeros((2, 64), device=dev),
+                      filters.gaussian_kernel1d(2100.0))
+
+
+def test_istft_row_equals_alone_with_imaginary_edges(dev):
+    """Random-phase spectra whose DC and Nyquist bins carry imaginary
+    parts, as the noise stems' do: a row of a batch of 80 through istft
+    equals the row alone to float rounding (cuFFT's C2R, reading those
+    parts, gives another result at another batch size)."""
+    from goofer_tpu_torch.ops import stft
+
+    rng = np.random.default_rng(3)
+    S = torch.complex(*(torch.as_tensor(rng.standard_normal(
+        (80, 513, 130)).astype(np.float32), device=dev) for _ in range(2)))
+    together = stft.istft(S, 256, 33074)
+    for i in (0, 40, 79):
+        alone = stft.istft(S[i:i + 1], 256, 33074)
+        torch.testing.assert_close(together[i:i + 1], alone, rtol=0.0,
+                                   atol=1e-5 * float(alone.abs().max()))
+
+
+def test_noisy_phrase_row_equals_note_alone_on_card(dev, tmp_path):
+    """Phrase (b)'s heavy notes with the noise on: a row of the batch of
+    80 against the same note alone, held to the noise-zeroed budget."""
+    import shutil
+    from pathlib import Path
+
+    voice = Path(__file__).parent / "golden" / "voice"
+    for ext in (".wav", "_features.goofy"):
+        shutil.copy(voice / f"src{ext}", tmp_path / f"voice{ext}")
+    notes = phrase_notes(str(tmp_path / "voice.wav"))["b"]
+    planned, outs = _render_planned(notes, "auto", False)
+    for i in (0, 41, 79):
+        pl = planned[i]
+        alone = render_core.render_note(pl.rs, pl.arrays, pl.scalars, (0, i),
+                                        dev).cpu().numpy()
+        _hold(f"phrase b note {i}", outs[i], alone, True)
 
 
 def test_burg_wrapper_rejects_long_frames(dev):

@@ -11,7 +11,12 @@ from pathlib import Path  # noqa: E402
 import numpy as np  # noqa: E402
 
 from goofer_tpu_torch import config  # noqa: E402
-from goofer_tpu_torch.ops.cuda import _build, cascade_kernel, pulse_kernel  # noqa: E402
+from goofer_tpu_torch.ops.cuda import (  # noqa: E402
+    _build,
+    blur_kernel,
+    cascade_kernel,
+    pulse_kernel,
+)
 from goofer_tpu_torch.sampler.resampler import GooferResampler  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -41,6 +46,14 @@ def test_port_imports_no_jax():
         "import goofer_tpu_torch.parallel.batch\n"
         "import goofer_tpu_torch.parallel.dryrun\n"
         "import goofer_tpu_torch.devices\n"
+        "import goofer_tpu_torch.analysis, goofer_tpu_torch.engine\n"
+        "import goofer_tpu_torch.io, goofer_tpu_torch.models\n"
+        "import goofer_tpu_torch.ops, goofer_tpu_torch.sampler\n"
+        "import goofer_tpu_torch.utils\n"
+        "import goofer_tpu_torch.ops.cuda.blur_kernel\n"
+        "import runpy\n"
+        "runpy.run_path('examples/engine_selftest_torch.py', "
+        "run_name='example')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'goofer_tpu'))\n"
@@ -88,6 +101,35 @@ def test_cascade_wrapper_never_falls_back(monkeypatch, tmp_path):
         cascade_kernel.one_pole_cascade(x, torch.ones(64, device="meta"), 6,
                                         "highpass")
     assert cascade_kernel.one_pole_cascade.launches == before
+
+
+def test_blur_wrapper_never_falls_back(monkeypatch, tmp_path):
+    _no_nvcc(monkeypatch, tmp_path, blur_kernel)
+    before = blur_kernel.gaussian_blur.launches
+    x = torch.zeros((2, 64), device="meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        blur_kernel.gaussian_blur(x, np.full(5, 0.2, np.float32))
+    assert blur_kernel.gaussian_blur.launches == before
+
+
+def test_blur_wrapper_rejects_other_devices():
+    x = torch.zeros((2, 64), device="meta")
+    with pytest.raises(ValueError, match="expected"):
+        blur_kernel.gaussian_blur(x, np.full(5, 0.2, np.float32))
+
+
+def test_blur_wrapper_cpu_runs_plain():
+    """A CPU tensor takes the plain version and counts no launch."""
+    from goofer_tpu_torch.ops.filters import blur_plain, gaussian_kernel1d
+
+    before = blur_kernel.gaussian_blur.launches
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (3, 40, 7)).astype(np.float32))
+    taps = gaussian_kernel1d(2.0)
+    for axis in (-1, -2):
+        assert torch.equal(blur_kernel.gaussian_blur(x, taps, axis),
+                           blur_plain(x, taps, axis))
+    assert blur_kernel.gaussian_blur.launches == before
 
 
 def test_cascade_wrapper_rejects_other_devices():

@@ -443,3 +443,19 @@ def test_noise_draws_are_keyed_per_row():
     np.testing.assert_allclose(full.std(dim=1).numpy(), 1.0, atol=1e-2)
     c = np.corrcoef(full.numpy())
     assert np.abs(c - np.eye(4)).max() < 1.5e-2
+
+
+def test_istft_reads_the_real_parts_of_the_edge_bins():
+    """hermitian_edges zeroes the imaginary parts of the DC and Nyquist
+    bins and nothing else, and istft's output does not depend on them, as
+    NumPy's irfft does not."""
+    rng = np.random.default_rng(4)
+    S = torch.complex(*(_t(rng.standard_normal((3, 65, 9)).astype(
+        np.float32)) for _ in range(2)))
+    edged = stft.hermitian_edges(S)
+    assert torch.equal(edged.real, S.real)
+    assert torch.equal(edged.imag[:, 1:-1], S.imag[:, 1:-1])
+    assert not edged.imag[:, [0, -1]].any()
+    assert torch.equal(stft.istft(S, 32, 300), stft.istft(edged, 32, 300))
+    frames = np.fft.irfft(S.numpy(), n=128, axis=-2)
+    _close(torch.fft.irfft(edged, n=128, dim=-2), frames, atol=1e-6)

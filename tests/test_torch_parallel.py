@@ -99,6 +99,18 @@ def cpu_mesh(n=8, tp=2):
     return make_mesh(n, tp=tp, devices=[CPU] * n)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread for this module: the suite runs 6
+    workers beside JAX's own thread pools, and torch's default of one
+    thread per core oversubscribes the machine; the old count comes back
+    at teardown."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def src(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_parallel_vb")
