@@ -27,11 +27,13 @@ Phases (any failure raises and the script exits nonzero):
    zeros), max |diff| <= 1e-4 x max|x|, and cross-check one kernel time
    against torch.profiler's device time; then the blur kernel at the
    heavy note's and phrase (b)'s shapes (sample axis: sigma 441 and 20
-   over 48510 samples and 80 x 33074, the jitters' coarse grids, a track
-   shorter than the window; bin axis of (80, 513, T): sigma 0.5-2),
-   max |diff| <= 1e-5 x max|x|, each batch's first, middle and last row
-   equal bit for bit to the row launched alone, timed beside cuDNN's
-   conv1d of the padded rows;
+   over 48510 samples, 16 and 80 x 33074, the jitters' coarse grids, a
+   track shorter than the window; bin axis of (80, 513, T) and of the
+   heavy note's (1, 513, T): sigma 0.5-2, the complex spectra as one
+   (B, 513, T, 2) float view), max |diff| <= 1e-5 x max|x|, each batch's
+   first, middle and last row equal bit for bit to the row launched
+   alone, a complex view equal bit for bit to its two parts launched
+   apart, timed beside cuDNN's conv1d of the padded rows;
 5. render the 12 golden configs and the heavy 11-flag stack through
    goofer_tpu_torch.cli.main on CUDA from the vendored .goofy caches:
    each golden must be finite, of the golden's length, within its
@@ -284,6 +286,9 @@ HEAVY = ("heavy_stack", "C4", 100,
          0, 100, 0, "!120", "AA")
 HEAVY_CASCADE_LAUNCHES = 5
 HEAVY_PULSE_LAUNCHES = 4
+# 2 of 3529 taps, 1 of 161, 201 and 75, 2 of 99 along the samples; 1 of
+# 17 and 15 along the bins, 4 complex spectra of 5 taps in one launch each
+HEAVY_BLUR_LAUNCHES = 13
 # relative to max|x|: the kernel's in-order fmaf sum and cuDNN's conv1d of
 # the same reflect-padded rows (float32 on both sides, TF32 off), up to
 # 3529 normalized taps
@@ -876,9 +881,13 @@ def blur_cases():
     mask (sigma 441, 3529 taps) and vj's mask (sigma 20) over the note's
     48510 samples and (b)'s 80 x 33074; the jitters' coarse grids (sigma /
     ds 9.25 and 12.25) and the voicing crossfade's (sigma 25) at (b)'s 80
-    rows; a track shorter than the window (repeated reflection).  Along
-    the bins of (B, 513, T): the complex spectrum blur (0.5), the breath
-    envelope (1.75) and the envelope smoothing (2.0) at (b)'s B."""
+    rows; a track shorter than the window (repeated reflection); sigma 441
+    at 16 rows, between the note and (b).  Along the bins of (B, 513, T):
+    the complex spectrum blur (0.5), the breath envelope (1.75) and the
+    envelope smoothing (2.0) at (b)'s B and at the heavy note's own B = 1
+    and frame counts; a complex spectrum as one (B, 513, T, 2) float view
+    at axis -3 and, as the port launches an STFT's, stored frames by bins,
+    (B, T, 513, 2) at axis -2."""
     rng = np.random.default_rng(11)
 
     def rows(*shape):
@@ -897,17 +906,24 @@ def blur_cases():
         ("phrase_bins_s0.5", rows(b, 513, 130), 0.5, -2),
         ("phrase_bins_s1.75", rows(b, 513, 129), 1.75, -2),
         ("phrase_bins_s2", rows(b, 513, 344), 2.0, -2),
+        ("note_bins_complex_s0.5", rows(1, 190, 513, 2), 0.5, -2),
+        ("note_bins_s1.75", rows(1, 513, 190), 1.75, -2),
+        ("note_bins_s2", rows(1, 513, 327), 2.0, -2),
+        ("phrase_bins_complex_s0.5", rows(b, 513, 130, 2), 0.5, -3),
+        ("phrase_s441_b16", rows(16, N_PHRASE_LONG - 1), 441.0, -1),
+        ("phrase_bins_complex_stored_s0.5", rows(b, 130, 513, 2), 0.5, -2),
     ]
 
 
 def check_blur_kernel(cases):
     """Kernel vs plain version on the card, every case, and each batch's
     first, middle and last row launched alone against the same row in the
-    batch, bit for bit; returns the worst max |diff|, the worst max
-    |diff| / max|x| and each case's (shape, taps, kernel ms, plain ms,
-    F.conv1d ms, bound ms, what bounds it).  The library column is one
-    cuDNN conv1d of the rows already reflect-padded: the plain version's
-    last step."""
+    batch, bit for bit, and a complex spectrum's float view against its
+    real and imaginary parts launched one by one, bit for bit; returns
+    the worst max |diff|, the worst max |diff| / max|x| and each case's
+    (shape, taps, kernel ms, plain ms, F.conv1d ms, bound ms, what bounds
+    it).  The library column is one cuDNN conv1d of the rows already
+    reflect-padded: the plain version's last step."""
     blur = blur_kernel.gaussian_blur
     dev = torch.device("cuda")
     worst = worst_rel = 0.0
@@ -934,6 +950,16 @@ def check_blur_kernel(cases):
                                          f"alone differs from the batch's "
                                          f"by {d:.3e}")
                 alone_equal += 1
+        parts_equal = ""
+        if x.ndim == 4 and axis in (-3, -2):
+            apart = torch.stack([blur(x[..., j].contiguous(), taps, axis + 1)
+                                 for j in (0, 1)], dim=-1)
+            if not torch.equal(apart, got):
+                d = float((apart - got).abs().max())
+                raise AssertionError(f"gaussian_blur {name}: the one-launch "
+                                     f"complex blur differs from its parts "
+                                     f"launched one by one by {d:.3e}")
+            parts_equal = " = its two parts launched apart, bit for bit"
         ms = cuda_ms(lambda: blur(x, taps, axis))
         p_ms = cuda_ms(lambda: filters.blur_plain(x, taps, axis),
                        PLAIN_REPS, gap_free=False)
@@ -949,7 +975,8 @@ def check_blur_kernel(cases):
         bound, bound_by = bound_ms(8 * outputs, 2 * len(taps) * outputs)
         print(f"gaussian_blur {name}: shape {tuple(x.shape)} axis {axis} "
               f"{len(taps)} taps max|diff|/max|x|={rel:.3e} rows alone "
-              f"bit-equal {alone_equal} kernel {ms:.5f} ms plain "
+              f"bit-equal {alone_equal}{parts_equal} kernel {ms:.5f} ms "
+              f"plain "
               f"{p_ms:.4f} ms F.conv1d {lib_ms:.4f} ms bound {bound:.5f} ms "
               f"({bound_by})")
         if not rel <= BLUR_TOL:
@@ -1177,7 +1204,9 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
 
     cascade_us = kernel_us("one_pole_cascade_kernel")
     pulse_us = kernel_us("pulse_accumulate_kernel")
-    blur_us = kernel_us("blur_rows_kernel") + kernel_us("blur_cols_kernel")
+    rows_us = kernel_us("blur_rows_kernel")
+    cols_us = kernel_us("blur_cols_kernel")
+    blur_us = rows_us + cols_us
     out = {
         "render_ms": wall_ms / reps,
         "device_busy_ms": busy_us / 1e3 / reps,
@@ -1191,6 +1220,10 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
                               for e in kernels) / reps,
         "blur_ms": blur_us / 1e3 / reps,
         "blur_share": blur_us / busy_us,
+        "blur_ms_by_kernel": {"blur_rows_kernel": rows_us / 1e3 / reps,
+                              "blur_cols_kernel": cols_us / 1e3 / reps},
+        "blur_launches": sum(k in e.name for e in kernels for k in (
+            "blur_rows_kernel", "blur_cols_kernel")) / reps,
         "table_build_kernels": sorted({e.name[:80] for e in kernels if any(
             k in e.name for k in TABLE_BUILD_KERNELS)}),
     }
@@ -1207,7 +1240,10 @@ def profile_heavy(tmp: Path, reps: int = 5) -> dict:
           f"{out['pulse_ms']:.4f} ms per note = {out['pulse_share']:.3f} "
           f"of device busy in {out['pulse_launches']:.1f} launches, blur "
           f"kernel {out['blur_ms']:.4f} ms per note = "
-          f"{out['blur_share']:.3f} of device busy; "
+          f"{out['blur_share']:.3f} of device busy in "
+          f"{out['blur_launches']:.1f} launches (rows "
+          f"{out['blur_ms_by_kernel']['blur_rows_kernel']:.4f}, cols "
+          f"{out['blur_ms_by_kernel']['blur_cols_kernel']:.4f} ms); "
           f"table-build kernels: {out['table_build_kernels'] or 'none'}")
     return out
 
@@ -1435,6 +1471,8 @@ def phrase_slice(tmp: Path) -> dict:
             "cascade_ms": kernel_ms("one_pole_cascade_kernel"),
             "blur_ms": (kernel_ms("blur_rows_kernel")
                         + kernel_ms("blur_cols_kernel")),
+            "blur_ms_by_kernel": {k: kernel_ms(k) for k in (
+                "blur_rows_kernel", "blur_cols_kernel")},
             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
         }
         r = out[name]
@@ -3385,11 +3423,13 @@ def main() -> int:
     if c_launches <= 0:
         raise AssertionError("the render never launched the cascade kernel")
     heavy = per_note[HEAVY[0]]
-    if heavy[:2] != (HEAVY_PULSE_LAUNCHES, HEAVY_CASCADE_LAUNCHES):
-        raise AssertionError(f"heavy note: {heavy[0]} pulse and {heavy[1]} "
-                             f"cascade launches, expected "
-                             f"{HEAVY_PULSE_LAUNCHES} and "
-                             f"{HEAVY_CASCADE_LAUNCHES}")
+    if heavy != (HEAVY_PULSE_LAUNCHES, HEAVY_CASCADE_LAUNCHES,
+                 HEAVY_BLUR_LAUNCHES):
+        raise AssertionError(f"heavy note: {heavy[0]} pulse, {heavy[1]} "
+                             f"cascade and {heavy[2]} blur launches, "
+                             f"expected {HEAVY_PULSE_LAUNCHES}, "
+                             f"{HEAVY_CASCADE_LAUNCHES} and "
+                             f"{HEAVY_BLUR_LAUNCHES}")
     if prof["table_build_kernels"]:
         raise AssertionError("heavy note: the pulse-table build still runs: "
                              f"{prof['table_build_kernels']}")
@@ -3592,8 +3632,11 @@ def main() -> int:
         "replaces": "goofer_tpu/ops/filters.py:68",
         "note": "replaces non-Pallas JAX code: _conv_valid_lastaxis (a "
                 "direct conv up to 33 taps, an FFT convolution above) "
-                "behind gaussian_blur1d; a direct in-order fmaf sum per "
-                "output, so that a row does not depend on its batch",
+                "behind gaussian_blur1d; the bits of an output depend on "
+                "the tap count alone (in-order fmaf along the bins; along "
+                "the samples in-order partitions of the taps, one warp "
+                "each, added in order), so a row does not depend on its "
+                "batch; a complex spectrum in one launch",
         "launches": sum(blur_by_phase.values()),
         "launches_by_path": blur_by_phase,
         "launches_per_heavy_note": heavy[2],
@@ -3615,8 +3658,16 @@ def main() -> int:
         "library_ms_by_case": {k: v[4] for k, v in bl_rows.items()},
         "bound_ms_by_case": {k: v[5] for k, v in bl_rows.items()},
         "phrase_device_ms": {k: v["blur_ms"] for k, v in phrases.items()},
+        "phrase_device_ms_by_kernel": {k: v["blur_ms_by_kernel"]
+                                       for k, v in phrases.items()},
         "heavy_note_device_ms": prof["blur_ms"],
+        "heavy_note_device_ms_by_kernel": prof["blur_ms_by_kernel"],
         "heavy_note_device_share": prof["blur_share"],
+        "ms_by_kernel": {
+            "blur_rows_kernel": {k: v[2] for k, v in bl_rows.items()
+                                 if len(v[0]) == 2},
+            "blur_cols_kernel": {k: v[2] for k, v in bl_rows.items()
+                                 if len(v[0]) > 2}},
     }] + analysis_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

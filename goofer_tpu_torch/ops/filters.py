@@ -106,10 +106,18 @@ def fir_decimate(x: torch.Tensor, kernel: np.ndarray,
 def gaussian_blur_complex_freq(S: torch.Tensor, sigma: float) -> torch.Tensor:
     """Frequency-axis blur of a complex spectrogram, real and imaginary
     parts separately (ref: GOOFER.py:1143 applies its real filter to
-    complex data).  (..., n_bins, T) complex64 in and out."""
-    re = gaussian_blur1d(S.real.contiguous(), sigma, axis=-2)
-    im = gaussian_blur1d(S.imag.contiguous(), sigma, axis=-2)
-    return torch.complex(re, im)
+    complex data).  (..., n_bins, T) complex64 in and out, in one blur of
+    a float view: every float sums the same taps in the same order as the
+    parts blurred one by one.  An STFT's spectrum keeps its bins
+    adjacent in memory, (..., T, n_bins) transposed; it is blurred as the
+    (..., T, n_bins, 2) floats it is stored as, so nothing is copied and
+    the result keeps its layout.  Any other layout goes as the
+    (..., n_bins, T, 2) view."""
+    if S.mT.is_contiguous():
+        out = gaussian_blur1d(torch.view_as_real(S.mT), sigma, axis=-2)
+        return torch.view_as_complex(out.contiguous()).mT
+    return torch.view_as_complex(
+        gaussian_blur1d(torch.view_as_real(S), sigma, axis=-3).contiguous())
 
 
 def smooth_mask_downsampled(mask: torch.Tensor, sigma: float = 100.0,

@@ -613,15 +613,21 @@ def test_blur_kernel_matches_plain(dev, case):
     _hold_blur(torch.as_tensor(x_np, device=dev), sigma, axis)
 
 
-@pytest.mark.parametrize("sigma", [0.5, 2.0, 25.0, 441.0, 882.0])
-@pytest.mark.parametrize("n", [1, 2, 5, blur_kernel.TILE - 1,
-                               blur_kernel.TILE, blur_kernel.TILE + 1,
-                               2 * blur_kernel.TILE + 3, 48510])
+# the rows kernel's tiles: 32 x run outputs x run groups (4 groups below
+# 512 taps, 2 below 768, else 1)
+ROW_TILES = (32, 64, 96, 128, 192, 224, 384, 448, 480, 896, 960, 1920)
+
+
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 25.0, 441.0, 882.0, 80.0,
+                                   100.0])
+@pytest.mark.parametrize("n", sorted({1, 2, 5, 48510} | {
+    t + d for t in ROW_TILES for d in (-1, 0, 1)} | {2 * 1920 + 3}))
 @pytest.mark.parametrize("batch", [1, 3])
 def test_blur_kernel_rows_at_tile_edges(dev, batch, n, sigma):
-    """Rows from one sample to past two tiles, windows longer than the
-    row (repeated reflection), up to the 7057 taps of the roughness
-    noise's sigma 882."""
+    """Rows from one sample to past two tiles of every run, windows
+    longer than the row (repeated reflection), up to the 7057 taps of the
+    roughness noise's sigma 882 (16 tap partitions); sigma 80 and 100
+    make 2 and 3 partitions (CTAs of 2 run groups, and of 3 warps)."""
     rng = np.random.default_rng(n + batch)
     x = torch.as_tensor(rng.standard_normal((batch, n)).astype(np.float32),
                         device=dev)
@@ -641,7 +647,8 @@ def test_blur_kernel_inner_axes(dev, shape, axis, sigma):
 
 @pytest.mark.parametrize("shape,axis,sigma", [
     ((80, 33074), -1, 441.0), ((80, 8270), -1, 12.25),
-    ((80, 513, 130), -2, 0.5), ((80, 513, 344), -2, 2.0)])
+    ((80, 513, 130), -2, 0.5), ((80, 513, 344), -2, 2.0),
+    ((16, 33074), -1, 441.0), ((80, 513, 130, 2), -3, 0.5)])
 def test_blur_kernel_rows_equal_alone(dev, shape, axis, sigma):
     """Every row of a batch of 80 equals the same row launched alone, bit
     for bit: no tile, block or batch size enters a row's sum."""
@@ -651,6 +658,61 @@ def test_blur_kernel_rows_equal_alone(dev, shape, axis, sigma):
     for i in range(shape[0]):
         assert torch.equal(together[i], gaussian_blur(x[i:i + 1], taps,
                                                       axis)[0])
+
+
+@pytest.mark.parametrize("shape,sigma", [
+    ((1, 48510), 441.0), ((16, 33074), 441.0), ((3, 700), 441.0),
+    ((80, 8270), 12.25), ((1, 48510), 20.0), ((2, 5000), 882.0)])
+def test_blur_kernel_every_run_same_bits(dev, shape, sigma):
+    """Every outputs-per-lane choice of the rows kernel gives the bits of
+    the layout the wrapper picks: only the tap count enters a sum."""
+    x = torch.as_tensor(np.random.default_rng(shape[1]).standard_normal(
+        shape).astype(np.float32), device=dev)
+    picked, taps = _hold_blur(x, sigma, -1)
+    for run in blur_kernel.RUNS:
+        assert torch.equal(blur_kernel.launch_blur(x, taps, run=run), picked)
+
+
+@pytest.mark.parametrize("stored", ["bins_by_frames", "frames_by_bins"])
+@pytest.mark.parametrize("shape", [(80, 513, 130), (1, 513, 190)])
+def test_blur_complex_one_launch_equals_parts(dev, shape, stored):
+    """gaussian_blur_complex_freq launches once, stored either way (an
+    STFT's spectrum is frames by bins in memory), and its result equals
+    the real and imaginary parts blurred one launch each, bit for bit."""
+    rng = np.random.default_rng(shape[0])
+    planes = [torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=dev) for _ in range(2)]
+    S = torch.complex(*planes)
+    if stored == "frames_by_bins":
+        S = S.mT.contiguous().mT
+    before = gaussian_blur.launches
+    got = filters.gaussian_blur_complex_freq(S, 0.5)
+    torch.cuda.synchronize()
+    assert gaussian_blur.launches == before + 1
+    taps = filters.gaussian_kernel1d(0.5)
+    apart = torch.complex(gaussian_blur(S.real.contiguous(), taps, -2),
+                          gaussian_blur(S.imag.contiguous(), taps, -2))
+    assert torch.equal(got, apart)
+
+
+@pytest.mark.parametrize("ntaps", [1, 3, 57, 59, 61, 201])
+@pytest.mark.parametrize("shape", [(1, 513, 190), (80, 513, 130), (2, 17, 9)])
+def test_blur_kernel_unrolled_and_generic_tap_counts(dev, shape, ntaps):
+    """Along the bins every odd count 3..57 runs its unrolled
+    instantiation, any other the generic one; both match the plain
+    version, at the tap count's run and the small grid's."""
+    t = np.arange(ntaps) - (ntaps - 1) / 2
+    taps = np.exp(-0.5 * (t / max(1.0, ntaps / 8)) ** 2)
+    taps = (taps / taps.sum()).astype(np.float32)
+    x = torch.as_tensor(np.random.default_rng(ntaps).standard_normal(
+        shape).astype(np.float32), device=dev)
+    before = gaussian_blur.launches
+    got = gaussian_blur(x, taps, -2)
+    want = filters.blur_plain(x, taps, -2)
+    torch.cuda.synchronize()
+    assert gaussian_blur.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0.0,
+                               atol=BLUR_TOL * float(x.abs().max()))
 
 
 def test_blur_wrapper_rejects_bad_inputs(dev):

@@ -99,6 +99,40 @@ def test_gaussian_blur_axis0_and_complex():
     _close(got, j_filters.gaussian_blur_complex_freq(jnp.asarray(s), 0.5))
 
 
+@pytest.mark.parametrize("stored", ["bins_by_frames", "frames_by_bins"])
+@pytest.mark.parametrize("shape", [(513, 40), (3, 513, 40)])
+def test_gaussian_blur_complex_freq_one_call(shape, stored, monkeypatch):
+    """One blur per complex spectrum, of its float view as stored: (...,
+    bins, T, 2) at axis -3, or, for an STFT's spectrum (frames by bins in
+    memory), (..., T, bins, 2) at axis -2, which keeps its layout.  Equal
+    to goofer_tpu's parts blurred one by one, for (bins, T) and a batch
+    of them (goofer_tpu vmapped)."""
+    rng = np.random.default_rng(4)
+    s = (rng.standard_normal(shape)
+         + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    S = (_t(s) if stored == "bins_by_frames"
+         else _t(np.ascontiguousarray(np.swapaxes(s, -1, -2))).mT)
+    calls = []
+    real = filters.gaussian_blur
+
+    def counted(x, taps, axis=-1):
+        calls.append((tuple(x.shape), axis))
+        return real(x, taps, axis)
+
+    monkeypatch.setattr(filters, "gaussian_blur", counted)
+    got = filters.gaussian_blur_complex_freq(S, 0.5)
+    if stored == "bins_by_frames":
+        assert calls == [(shape + (2,), -3)]
+    else:
+        assert calls == [(shape[:-2] + shape[:-3:-1] + (2,), -2)]
+        assert got.stride() == S.stride()
+    assert got.dtype == torch.complex64 and got.shape == shape
+    blur = lambda a: j_filters.gaussian_blur_complex_freq(a, 0.5)  # noqa: E731
+    want = (blur(jnp.asarray(s)) if len(shape) == 2
+            else jax.vmap(blur)(jnp.asarray(s)))
+    _close(got, want)
+
+
 @pytest.mark.parametrize("sigma", [100.0, 60.0])
 def test_smooth_mask_downsampled(sigma):
     mask = np.zeros(9000, dtype=np.float32)

@@ -195,57 +195,102 @@ def _reflect(j: np.ndarray, n: int) -> np.ndarray:
     return np.where(m >= n, period - m, m)
 
 
-def rows_model(x: np.ndarray, taps: np.ndarray) -> np.ndarray:
-    """csrc/gaussian_blur.cu's blur_rows_kernel in NumPy: per (row, tile)
-    the staged span (its size as the source allocates it, so a read past
-    it raises), each thread's RUN outputs summed over chunks of RUN taps
-    and the tail, in tap order, then written back in tile order."""
-    run, threads, tile = blur_kernel.RUN, blur_kernel.THREADS, \
-        blur_kernel.TILE
+def rows_model(x: np.ndarray, taps: np.ndarray,
+               run: int | None = None) -> np.ndarray:
+    """csrc/gaussian_blur.cu's blur_rows_kernel in NumPy, at the layout
+    blur_kernel.rows_geometry picks (or with ``run`` outputs per lane):
+    per (row, tile) the staged span (its size as the source allocates it,
+    so a read past it raises); per tap partition, each lane's run of
+    outputs summed over its window of run + 15 samples per chunk of 16
+    taps, then the tail, in tap order; the partials added in partition
+    order and written back in tile order."""
     batch, n = x.shape
     ntaps = len(taps)
     radius = (ntaps - 1) // 2
-    padded = -(-ntaps // run) * run
-    span = tile + padded + run
-    base = (np.arange(threads) * run)[:, None]
-    out = np.empty_like(x)
-    for row in range(batch):
-        for t0 in range(0, n, tile):
-            s = x[row, _reflect(t0 - radius + np.arange(span), n)]
-            acc = np.zeros((threads, run), np.float32)
-            whole = ntaps // run * run
-            for kb in range(0, whole, run):
-                xs = s[base + kb + np.arange(2 * run - 1)]
-                for q in range(run):
-                    acc = acc + taps[kb + q] * xs[:, q:q + run]
-            for k in range(whole, ntaps):
-                acc = acc + taps[k] * s[base + k + np.arange(run)]
-            valid = min(tile, n - t0)
-            out[row, t0:t0 + valid] = acc.reshape(-1)[:valid]
-    return out
+    geo = blur_kernel.rows_geometry(batch, n, ntaps, run)
+    chunk = blur_kernel.TAP_CHUNK
+    assert geo.threads <= 512 and geo.part_len % chunk == 0
+    assert (geo.parts - 1) * geo.part_len < ntaps <= geo.parts * geo.part_len
+    r, tile = geo.run, geo.tile
+    span = tile + ntaps - 1
+    starts = np.arange(geo.tiles) * tile
+    s = x[:, _reflect(starts[:, None] - radius + np.arange(span), n)]
+    base = (np.arange(blur_kernel.WARP * geo.groups) * r)[:, None]
+    total = None
+    for p in range(geo.parts):
+        k0 = p * geo.part_len
+        k1 = min(ntaps, k0 + geo.part_len)
+        whole = k0 + (k1 - k0) // chunk * chunk
+        acc = np.zeros((batch, geo.tiles) + base.shape[:1] + (r,),
+                       np.float32)
+        for kb in range(k0, whole, chunk):
+            xs = s[:, :, base + kb + np.arange(r + chunk - 1)]
+            w = taps[kb:kb + chunk]
+            assert kb % 4 == 0 and len(w) == chunk
+            for q in range(chunk):
+                acc = acc + w[q] * xs[..., q:q + r]
+        for k in range(whole, k1):
+            acc = acc + taps[k] * s[:, :, base + k + np.arange(r)]
+        acc = acc.reshape(batch, geo.tiles * tile)
+        total = acc if total is None else total + acc
+    return total[:, :n]
 
 
-def cols_cover(outer: int, n: int, inner: int) -> np.ndarray:
-    """How many threads of csrc/gaussian_blur.cu's blur_cols_kernel write
-    each (slab, output, column): its grid and index arithmetic."""
-    threads, run = blur_kernel.COL_THREADS, blur_kernel.COL_RUN
+def cols_threads(outer: int, n: int, inner: int, ntaps: int,
+                 run: int | None = None):
+    """csrc/gaussian_blur.cu's blur_cols_kernel grid: (slab, first output,
+    column) of every thread that passes the bound check, and its run (the
+    wrapper's col_run, or ``run``)."""
+    run = run or blur_kernel.col_run(outer, n, inner, ntaps)
     runs = -(-n // run)
-    per_slab = -(-runs * inner // threads)
+    threads = outer * runs * inner
+    blocks = -(-threads // blur_kernel.COL_THREADS)
+    idx = np.arange(blocks * blur_kernel.COL_THREADS)
+    idx = idx[idx < threads]
+    rest = idx // inner
+    return rest // runs, rest % runs * run, idx % inner, run
+
+
+def cols_cover(outer: int, n: int, inner: int, ntaps: int,
+               run: int | None = None) -> np.ndarray:
+    """How many threads of blur_cols_kernel write each (slab, output,
+    column)."""
+    slab, i0, col, run = cols_threads(outer, n, inner, ntaps, run)
     hits = np.zeros((outer, n, inner), np.int64)
-    for block in range(outer * per_slab):
-        slab = block // per_slab
-        idx = (block % per_slab) * threads + np.arange(threads)
-        col, i0 = idx % inner, idx // inner * run
-        for c, start in zip(col, i0):
-            if start < n:
-                hits[slab, start:min(start + run, n), c] += 1
+    for i in range(run):
+        ok = i0 + i < n
+        np.add.at(hits, (slab[ok], i0[ok] + i, col[ok]), 1)
     return hits
 
 
+def cols_model(x: np.ndarray, taps: np.ndarray,
+               run: int | None = None) -> np.ndarray:
+    """blur_cols_kernel in NumPy on (outer, n, inner): each thread's window
+    of run + ntaps - 1 reflected bins of its column, its outputs summed
+    over it in tap order, stored where the bound check lets them."""
+    outer, n, inner = x.shape
+    ntaps = len(taps)
+    radius = (ntaps - 1) // 2
+    slab, i0, col, run = cols_threads(outer, n, inner, ntaps, run)
+    window = x[slab[:, None],
+               _reflect(i0[:, None] - radius + np.arange(run + ntaps - 1),
+                        n),
+               col[:, None]]
+    out = np.full_like(x, np.nan)
+    for i in range(run):
+        acc = np.zeros(len(slab), np.float32)
+        for k in range(ntaps):
+            acc = acc + taps[k] * window[:, i + k]
+        ok = i0 + i < n
+        out[slab[ok], i0[ok] + i, col[ok]] = acc[ok]
+    return out
+
+
+# n and sigma: the edges of the first layout's 1152-output tile, the
+# short track
 @pytest.mark.parametrize("n,sigma", [
-    (1, 2.0), (2, 2.0), (5, 20.0), (blur_kernel.TILE - 1, 0.5),
-    (blur_kernel.TILE, 12.25), (blur_kernel.TILE + 1, 2.0),
-    (2 * blur_kernel.TILE + 3, 25.0), (700, 441.0)])
+    (1, 2.0), (2, 2.0), (5, 20.0), (1151, 0.5), (1152, 12.25), (1153, 2.0),
+    (2307, 25.0), (700, 441.0)])
 def test_blur_rows_model_matches_plain(n, sigma):
     x = np.random.default_rng(n).standard_normal((2, n)).astype(np.float32)
     taps = filters.gaussian_kernel1d(sigma)
@@ -255,10 +300,91 @@ def test_blur_rows_model_matches_plain(n, sigma):
                                atol=1e-5 * np.abs(x).max())
 
 
+@pytest.mark.parametrize("batch,n,sigma", [
+    (1, 48510, 441.0), (1, 700, 441.0), (1, 48510, 20.0), (80, 4136, 9.25),
+    (3, 2 * 32 * 15 + 1, 882.0), (2, 5000, 80.0), (1, 3000, 100.0)])
+def test_blur_rows_model_one_row_and_every_run(batch, n, sigma):
+    """The heavy note's one row of 48510 (13 tap partitions of 272), a
+    700-sample row under 3529 taps, the jitter's batch, 7057 taps (16
+    partitions), 641 and 801 taps (2 and 3): the layout rows_geometry
+    picks matches the plain version, and every run of RUNS sums the same
+    terms in the same order, bit for bit."""
+    x = np.random.default_rng(n + batch).standard_normal(
+        (batch, n)).astype(np.float32)
+    taps = filters.gaussian_kernel1d(sigma)
+    want = filters.blur_plain(torch.as_tensor(x), taps).numpy()
+    got = rows_model(x, taps)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(x).max())
+    for run in blur_kernel.RUNS:
+        np.testing.assert_array_equal(rows_model(x, taps, run), got)
+
+
+@pytest.mark.parametrize("outer,n,sigma,run", [
+    (1, 48510, 441.0, 7), (80, 33074, 441.0, 15), (16, 33074, 441.0, 15),
+    (3, 700, 441.0, 1), (1, 48510, 20.0, 1), (80, 8270, 12.25, 7),
+    (80, 4136, 9.25, 3)])
+def test_blur_rows_geometry_fills_the_card(outer, n, sigma, run):
+    """3529 taps make 13 partitions of 272: the note's row spreads over
+    217 CTAs of 13 warps, (b)'s 80 rows over 5520; a 700-sample row gets
+    32-output tiles; the short blurs fill 4-warp CTAs.  The largest run
+    whose grid reaches 16 warps per SM, else the smallest; a CTA never
+    exceeds 512 threads."""
+    ntaps = len(filters.gaussian_kernel1d(sigma))
+    geo = blur_kernel.rows_geometry(outer, n, ntaps)
+    assert geo.threads <= 512 and geo.run == run and geo.tile <= n
+    warps = outer * geo.tiles * geo.threads // blur_kernel.WARP
+    assert warps >= blur_kernel.MIN_GRID_WARPS or run == 1
+    if ntaps == 3529:
+        assert (geo.parts, geo.part_len, geo.groups) == (13, 272, 1)
+    else:
+        assert (geo.parts, geo.groups) == (1, blur_kernel.MIN_WARPS)
+
+
 @pytest.mark.parametrize("outer,n,inner", [(1, 513, 130), (3, 17, 129),
                                            (2, 5, 1000), (4, 40, 7)])
 def test_blur_cols_grid_covers_each_output_once(outer, n, inner):
-    assert (cols_cover(outer, n, inner) == 1).all()
+    """At every run the kernel is built for: the tap count's own and the
+    small grid's."""
+    for ntaps in (5, 57, 201):
+        for run in (None, blur_kernel.COL_RUN_SMALL,
+                    blur_kernel.COL_RUN_SHORT if ntaps <= 17
+                    else blur_kernel.COL_RUN):
+            assert (cols_cover(outer, n, inner, ntaps, run) == 1).all()
+
+
+@pytest.mark.parametrize("outer,n,inner,sigma", [
+    (2, 513, 2 * 130, 0.5), (1, 513, 190, 1.75), (1, 513, 327, 2.0),
+    (2 * 130, 513, 2, 0.5),
+    (2, 40, 9, 7.0), (1, 17, 5, 25.0)])
+def test_blur_cols_model_matches_plain(outer, n, inner, sigma):
+    """The bin-axis layout: a complex slab of inner 2T at 5 taps, the
+    heavy note's 15 and 17, env_shape's 57, the generic 201 taps over 17
+    bins (repeated reflection)."""
+    x = np.random.default_rng(n + inner).standard_normal(
+        (outer, n, inner)).astype(np.float32)
+    taps = filters.gaussian_kernel1d(sigma)
+    want = filters.blur_plain(torch.as_tensor(x), taps, axis=1).numpy()
+    own = (blur_kernel.COL_RUN_SHORT if len(taps) <= 17
+           else blur_kernel.COL_RUN)
+    for run in (own, blur_kernel.COL_RUN_SMALL):
+        assert (cols_cover(outer, n, inner, len(taps), run) == 1).all()
+        np.testing.assert_allclose(cols_model(x, taps, run), want, rtol=0,
+                                   atol=1e-5 * np.abs(x).max())
+
+
+@pytest.mark.parametrize("shape,ntaps,run", [
+    ((80, 513, 130), 5, 32), ((80, 513, 344), 17, 32),
+    ((80, 513, 260), 5, 32), ((80, 513, 130), 57, 16),
+    ((1, 513, 380), 5, 4), ((1, 513, 190), 15, 4), ((1, 513, 327), 17, 4),
+    ((80 * 130, 513, 2), 5, 4), ((190, 513, 2), 5, 4),
+    ((80, 513, 130), 1, 16), ((80, 513, 130), 59, 16)])
+def test_blur_cols_run_fills_the_card(shape, ntaps, run):
+    """Phrase (b)'s spectra keep the tap count's run (the generic
+    instantiation's for a count not unrolled); the heavy note's B = 1
+    spectra take the small run, for 4 x the threads, and so do the
+    complex STFT spectra as stored, (B T, bins, 2) floats."""
+    assert blur_kernel.col_run(*shape, ntaps) == run
 
 
 # ------------------------------------------------------- launcher, example
