@@ -171,9 +171,19 @@ Phases (any failure raises and the script exits nonzero):
    copy of the package as pyproject.toml ships it, its kernels and codec
    built under XDG_CACHE_HOME, equal at int16 to the in-tree render;
    every path from step 5 on must have launched the blur kernel;
-21. print the phrases, analysis, server, facade, editor, codec, parallel,
-   surface and kernels summaries as one JSON line each, then the device
-   line.
+21. the note render's own profile (profile_slice, utils/profiling.py):
+   the heavy note through cli.main, plain, then with GOOFER_TPU_PROFILE=1
+   (three torch.cuda.synchronize calls, one per stage; none in the plain
+   render), then with GOOFER_TPU_TRACE_DIR set too: the features /
+   resample / write report with n=1 each, its total within the call's
+   wall time, the WAV byte-equal to the plain render's, the trace holding
+   device events of the pulse, cascade and blur kernels; then the same
+   note in a fresh ``python -m goofer_tpu_torch.cli`` process with
+   GOOFER_TPU_PROFILE=1; prints the warm and cold stage splits beside the
+   card's name and power limit;
+22. print the phrases, analysis, server, facade, editor, codec, parallel,
+   surface, profile and kernels summaries as one JSON line each, then the
+   device line.
 
 Kernel times are device time per launch: a run of ``TIMED_REPS``
 launches between one pair of CUDA events, enqueued behind a spin kernel
@@ -188,7 +198,9 @@ from __future__ import annotations
 
 import contextlib
 import importlib.util
+import io
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -240,6 +252,7 @@ from goofer_tpu_torch.sampler.resampler import (
 )
 from goofer_tpu_torch.utils.audio_io import read_wav, read_wav_mono, write_wav
 from goofer_tpu_torch.utils.metrics import f0_rmse_cents, lsd_db
+from goofer_tpu_torch.utils.profiling import profiled
 
 REPO = Path(__file__).resolve().parent
 
@@ -425,19 +438,9 @@ def device_events(prof):
 @contextlib.contextmanager
 def device_profile():
     """torch.profiler over the device activity of the block, its tracing
-    started one step ahead on a trivial kernel whose step is discarded:
-    CUPTI can miss the first kernels after tracing starts (it recorded 99
-    of 100 launches once, and none once)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA],
-            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
-                                             repeat=1)) as prof:
-        torch.zeros(1, device="cuda").add_(1.0)
-        torch.cuda.synchronize()
-        prof.step()
+    started one discarded step ahead (utils/profiling.py:profiled)."""
+    with profiled([torch.profiler.ProfilerActivity.CUDA]) as prof:
         yield prof
-        torch.cuda.synchronize()
-        prof.step()
 
 
 def profiler_ms(fn, kernel: str, reps: int = TIMED_REPS) -> float:
@@ -3312,6 +3315,172 @@ def surface_slice(tmp: Path, heavy_blur: int) -> dict:
     return out
 
 
+PROFILE_STAGES = ("features", "resample", "write")
+# the kernels the heavy note's trace must show: (pulse, cascade, blur)
+TRACED_KERNELS = (("pulse_accumulate_kernel",), ("one_pole_cascade_kernel",),
+                  ("blur_rows_kernel", "blur_cols_kernel"))
+
+
+def stage_split(text: str) -> dict:
+    """The last "[profile] total" report in ``text``: {"total_ms",
+    "x_realtime", "stages": {name: [ms, n]}}; raises unless it holds the
+    three stages once each."""
+    lines = text.splitlines()
+    heads = [i for i, ln in enumerate(lines)
+             if ln.startswith("[profile] total ")]
+    if not heads:
+        raise AssertionError(f"no [profile] report logged:\n{text[-2000:]}")
+    head = lines[heads[-1]].split()
+    stages = {}
+    for ln in lines[heads[-1] + 1:heads[-1] + 1 + len(PROFILE_STAGES)]:
+        name, ms, _, _, n = ln.replace("(", " ").replace(")", " ").replace(
+            ",", " ").split()[:5]
+        stages[name] = [float(ms), int(n.removeprefix("n="))]
+    if sorted(stages) != sorted(PROFILE_STAGES) or any(
+            n != 1 for _, n in stages.values()):
+        raise AssertionError(f"profile report stages {stages}, expected "
+                             f"{PROFILE_STAGES} once each")
+    return {"total_ms": float(head[2]),
+            "x_realtime": float(head[4].removesuffix("x")),
+            "stages": stages}
+
+
+def traced_kernels(trace_dir: Path) -> list[int]:
+    """Device events per TRACED_KERNELS entry in the one trace file under
+    ``trace_dir``."""
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{trace_dir}: {len(files)} trace files")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    return [sum(any(k in e.get("name", "") for k in names) for e in events)
+            for names in TRACED_KERNELS]
+
+
+def profile_slice(tmp: Path) -> dict:
+    """The note render's own profile on the card (utils/profiling.py),
+    the heavy note through cli.main on the voice source of render_slice.
+
+    Warm, in this process: a plain render; one with GOOFER_TPU_PROFILE=1,
+    which must call torch.cuda.synchronize three times (once per stage)
+    where the plain render calls it never; one with GOOFER_TPU_TRACE_DIR
+    set too.  Each profiled render logs features / resample / write with
+    n=1, their total within the call's wall time, and writes the plain
+    render's bytes; the trace holds device events of the pulse, cascade
+    and blur kernels (printed beside the launch counters' rise; CUPTI
+    has dropped launches, so the counts are not held equal).  Cold: the
+    same note in a fresh ``python -m goofer_tpu_torch.cli`` process with
+    GOOFER_TPU_PROFILE=1, its report read from its log."""
+    t0 = time.perf_counter()
+    name, *args = HEAVY
+    work = tmp / "profile"
+    work.mkdir()
+    src = tmp / "voice.wav"
+
+    def argv(out):
+        return [str(src), str(work / out)] + [str(a) for a in args]
+
+    logger = logging.getLogger("goofer_tpu_torch")
+    real_sync = torch.cuda.synchronize
+    out = {"warm": {}}
+    os.environ[config.DEVICE_ENV] = "cuda"
+    variables = {"plain": {},
+                 "profile": {"GOOFER_TPU_PROFILE": "1"},
+                 "profile_trace": {"GOOFER_TPU_PROFILE": "1",
+                                   "GOOFER_TPU_TRACE_DIR": str(
+                                       work / "trace")}}
+    for run, env in variables.items():
+        records, syncs = io.StringIO(), []
+
+        def counted_sync(device=None):
+            syncs.append(device)
+            real_sync(device)
+
+        handler = logging.StreamHandler(records)
+        level = logger.level
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        os.environ.update(env)
+        torch.cuda.synchronize = counted_sync
+        before = _launches() + (_blur_launches(),)
+        try:
+            t1 = time.perf_counter()
+            rc = cli.main(argv(f"{run}.wav"))
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            torch.cuda.synchronize = real_sync
+            for key in env:
+                del os.environ[key]
+            logger.removeHandler(handler)
+            logger.setLevel(level)
+        launched = [b - a for a, b in zip(
+            before, _launches() + (_blur_launches(),))]
+        if rc != 0:
+            raise AssertionError(f"profile {run}: cli rc {rc}")
+        if run == "plain":
+            if syncs:
+                raise AssertionError(f"profile: the plain render called "
+                                     f"torch.cuda.synchronize {len(syncs)} "
+                                     "times")
+            plain = (work / "plain.wav").read_bytes()
+            continue
+        if run == "profile" and len(syncs) != len(PROFILE_STAGES):
+            raise AssertionError(f"profile: {len(syncs)} synchronize calls "
+                                 f"with GOOFER_TPU_PROFILE=1, expected "
+                                 f"{len(PROFILE_STAGES)}")
+        split = stage_split(records.getvalue())
+        if not sum(ms for ms, _ in split["stages"].values()) <= wall_ms:
+            raise AssertionError(f"profile {run}: stages "
+                                 f"{split['stages']} over the call's "
+                                 f"{wall_ms:.3f} ms")
+        if (work / f"{run}.wav").read_bytes() != plain:
+            raise AssertionError(f"profile {run}: the WAV differs from the "
+                                 "plain render's")
+        split.update(wall_ms=wall_ms, synchronize_calls=len(syncs),
+                     launches=launched)
+        out["warm"][run] = split
+    traced = traced_kernels(work / "trace")
+    if min(traced) <= 0:
+        raise AssertionError(f"profile: the trace holds {traced} device "
+                             f"events of {TRACED_KERNELS}")
+    out["warm"]["profile_trace"]["traced_kernels"] = dict(zip(
+        ("pulse", "cascade", "blur"), traced))
+
+    env = dict(os.environ, GOOFER_TPU_PROFILE="1",
+               **{config.DEVICE_ENV: "cuda"})
+    t1 = time.perf_counter()
+    proc = run_cli([sys.executable, "-m", "goofer_tpu_torch.cli"]
+                   + argv("cold.wav"), REPO, env, "cold profiled render")
+    out["cold"] = stage_split(proc.stderr)
+    out["cold"]["process_wall_ms"] = (time.perf_counter() - t1) * 1e3
+    out["card"] = card_line()
+    out["seconds"] = time.perf_counter() - t0
+
+    def fmt(split):
+        return (", ".join(f"{k} {v[0]:.2f} ms" for k, v in
+                          split["stages"].items())
+                + f" (total {split['total_ms']:.2f} ms, "
+                f"{split['x_realtime']:.1f}x realtime)")
+
+    warm = out["warm"]
+    print(f"profile {name} trace: device events pulse {traced[0]}, cascade "
+          f"{traced[1]}, blur {traced[2]}; launch counters rose "
+          + ", ".join(f"{k} {v}" for k, v in zip(
+              ("pulse", "cascade", "blur"),
+              warm["profile_trace"]["launches"]))
+          + f"; synchronize calls plain 0, GOOFER_TPU_PROFILE "
+          f"{warm['profile']['synchronize_calls']}, with the trace "
+          f"{warm['profile_trace']['synchronize_calls']}; WAVs byte-equal "
+          "to the plain render")
+    print(f"profile {name} stage split on {out['card']}: warm "
+          f"{fmt(warm['profile'])}; warm with the trace "
+          f"{fmt(warm['profile_trace'])}; cold process "
+          f"{fmt(out['cold'])}, process wall "
+          f"{out['cold']['process_wall_ms']:.1f} ms; the phase took "
+          f"{out['seconds']:.2f} s")
+    return out
+
+
 def build_codecs() -> tuple[list[Path], float]:
     """Build the two host codec libraries (g++), one thread each; returns
     their paths and the seconds taken."""
@@ -3396,6 +3565,10 @@ def main() -> int:
         start = _blur_launches()
         surface = surface_slice(Path(tmp), per_note[HEAVY[0]][2])
         blurred("surface", start)
+        start, before = _blur_launches(), _launches()
+        profile = profile_slice(Path(tmp))
+        pr_launches = [b - a for a, b in zip(before, _launches())]
+        blurred("profile", start)
     codec["build_s"] = codec_s
     pa_launches = par.pop("launches")
     if min(pa_launches) <= 0:
@@ -3451,6 +3624,7 @@ def main() -> int:
     print(json.dumps({"codec": codec}))
     print(json.dumps({"parallel": par}))
     print(json.dumps({"surface": surface}))
+    print(json.dumps({"profile": profile}))
     def per_chunk(n_launches):
         return {"launches_per_chunk": n_launches / analysis["chunks"],
                 "chunks": analysis["chunks"],
@@ -3561,8 +3735,10 @@ def main() -> int:
                 "(goofer_tpu/ops/pulse.py:109, :84, :170) and the "
                 "K-bounded LF accumulation of the Pallas kernel",
         "launches": (launches + ph_launches + sv_launches + fa_launches
-                     + ed_launches + co_launches + pa_launches[0]),
+                     + ed_launches + co_launches + pa_launches[0]
+                     + pr_launches[0]),
         "launches_note_path": launches,
+        "launches_profile_path": pr_launches[0],
         "launches_parallel_path": pa_launches[0],
         "launches_phrase_path": ph_launches,
         "launches_server_path": sv_launches,
@@ -3598,8 +3774,9 @@ def main() -> int:
                 "the stage solver of dynamic_one_pole_cascade",
         "launches": (c_launches + ph_c_launches + sv_c_launches
                      + fa_c_launches + ed_c_launches + co_c_launches
-                     + pa_launches[1]),
+                     + pa_launches[1] + pr_launches[1]),
         "launches_note_path": c_launches,
+        "launches_profile_path": pr_launches[1],
         "launches_parallel_path": pa_launches[1],
         "launches_phrase_path": ph_c_launches,
         "launches_server_path": sv_c_launches,

@@ -36,6 +36,11 @@ from goofer_tpu_torch.sampler.plan import (
 )
 from goofer_tpu_torch.sampler.render_core import RenderStatic, render_note
 from goofer_tpu_torch.utils.audio_io import write_wav
+from goofer_tpu_torch.utils.profiling import (
+    StageTimer,
+    device_trace,
+    profiling_enabled,
+)
 
 log = logging.getLogger("goofer_tpu_torch")
 
@@ -328,19 +333,32 @@ class GooferResampler:
             self.render()
 
     def render(self) -> None:
+        """Render the note and write its WAV.  $GOOFER_TPU_PROFILE logs
+        the features / resample / write split, $GOOFER_TPU_TRACE_DIR
+        writes a trace of the render (utils/profiling.py)."""
         p = self.params
-        env, f0i, vmask, forms, sr, ylen = acquire_features(
-            self.in_file, self.n_fft, self.hop, self.device)
-        forms = formants_to_int_keys(forms)
-        if p.reverse:
-            log.info("Reversing features (R flag)")
-            env = env[:, ::-1]
-            f0i = f0i[::-1]
-            vmask = vmask[::-1]
-            forms = {k: np.asarray(forms[k])[::-1] for k in forms}
-        out = self.resample(env, f0i, vmask, forms, sr, ylen)
-        log.info("Writing %s", self.out_file)
-        write_wav(self.out_file, out.cpu().numpy(), sr)
+        timer = StageTimer(enabled=profiling_enabled(), device=self.device)
+        with device_trace(device=self.device):
+            with timer.stage("features"):
+                env, f0i, vmask, forms, sr, ylen = acquire_features(
+                    self.in_file, self.n_fft, self.hop, self.device)
+                forms = formants_to_int_keys(forms)
+                if p.reverse:
+                    log.info("Reversing features (R flag)")
+                    env = env[:, ::-1]
+                    f0i = f0i[::-1]
+                    vmask = vmask[::-1]
+                    forms = {k: np.asarray(forms[k])[::-1] for k in forms}
+
+            with timer.stage("resample"):
+                out = self.resample(env, f0i, vmask, forms, sr, ylen)
+                out = out.cpu().numpy()
+
+            with timer.stage("write"):
+                log.info("Writing %s", self.out_file)
+                write_wav(self.out_file, out, sr)
+        if timer.enabled:
+            timer.report(audio_seconds=len(out) / sr)
 
     def _editor_roundtrip(self, mask_cut: np.ndarray, cut, sr):
         """SE1: run the voicing editor on the note snippet and write the

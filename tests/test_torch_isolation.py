@@ -50,6 +50,7 @@ def test_port_imports_no_jax():
         "import goofer_tpu_torch.io, goofer_tpu_torch.models\n"
         "import goofer_tpu_torch.ops, goofer_tpu_torch.sampler\n"
         "import goofer_tpu_torch.utils\n"
+        "import goofer_tpu_torch.utils.profiling\n"
         "import goofer_tpu_torch.ops.cuda.blur_kernel\n"
         "import runpy\n"
         "runpy.run_path('examples/engine_selftest_torch.py', "

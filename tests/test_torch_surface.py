@@ -12,8 +12,9 @@ plan applier atol 1e-6 (one or two float32 roundings of values of size
 sum in two convolution orders).  The blur kernel's tiling is modelled
 here in NumPy (the CUDA source has no CPU build) and held to the plain
 version at 1e-5 x max|x|.  Also here: the launcher and the engine
-self-test example on the CPU, and the package as pyproject.toml ships
-it."""
+self-test example on the CPU, the package as pyproject.toml ships it, and
+an audit of every public top-level name of goofer_tpu's modules (ported,
+or in NOT_PORTED with its reason)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -75,6 +76,95 @@ def test_subpackage_exports_match_goofer_tpu(sub):
         assert (mine.__name__ if sub == "ops" else mine.__module__) == want
         if sub != "ops":
             assert mine.__name__ == ref.__name__
+
+
+UNIVERSAL = "the universal fallback graph, which bounds XLA compiles; " \
+    "the port renders eagerly"
+COMPILE = "compile machinery for XLA or the TPU"
+# (goofer_tpu module, public top-level name) -> why the port's counterpart
+# module has no such name
+NOT_PORTED = {
+    ("sampler/render_core.py", "universal_static"): UNIVERSAL,
+    ("sampler/render_core.py", "universalize_inputs"): UNIVERSAL,
+    ("sampler/render_core.py", "clear_compiled_render_graphs"):
+        "drops jit executables pinned for the graph budget: " + COMPILE,
+    ("sampler/render_core.py", "FORMANT_BELL_SIGMAS"):
+        "renamed to ops/envelope.py:FORMANT_BELL_SIGMAS_HZ",
+    ("sampler/resampler.py", "render_note_auto"): UNIVERSAL,
+    ("sampler/resampler.py", "warm_universal"): UNIVERSAL,
+    ("sampler/resampler.py", "plan_warm_entries"): UNIVERSAL,
+    ("sampler/resampler.py", "WARM_NOTE_SECONDS"): UNIVERSAL,
+    ("sampler/resampler.py", "WARM_SAMPLE_RATES"): UNIVERSAL,
+    ("sampler/resampler.py", "GRAPH_BUDGET"): COMPILE,
+    ("sampler/phrase.py", "PHRASE_GRAPH_BUDGET"): COMPILE,
+    ("ops/envelope.py", "env_shape_traced"): UNIVERSAL,
+    ("ops/envelope.py", "banded_gather_lerp_columns"): UNIVERSAL,
+    ("ops/filters.py", "gaussian_blur1d_traced"): UNIVERSAL,
+    ("ops/filters.py", "fft_conv_valid"):
+        "a power-of-two FFT convolution for XLA-TPU compile times; the "
+        "port's blur is csrc/gaussian_blur.cu: " + COMPILE,
+    ("engine/synth.py", "synth_core_impl"):
+        "the unjitted body of the jitted synth_core; the port's eager "
+        "body is engine/synth.py:_synth_body",
+    ("analysis/pitch.py", "pitch_graph_bucketed"):
+        "a compile bucket of padded signals; the port's pitch_graph takes "
+        "any length: " + COMPILE,
+    ("config.py", "ENVELOPE_MATMUL_DTYPE"):
+        "a bfloat16 option for the TPU's MXU; the port pins float32: "
+        + COMPILE,
+    ("ops/scan_iir.py", "first_order_recurrence"):
+        "renamed to ops/scan_iir.py:_affine_scan, the stage solver",
+    ("ops/scan_iir.py", "first_order_recurrence_pos"):
+        "log-domain blocks that keep exp inside float32 on the TPU; the "
+        "port's stages run in csrc/one_pole_cascade.cu",
+    ("ops/scan_iir.py", "dynamic_one_pole_cascade"):
+        "renamed to ops/scan_iir.py:cascade, which takes the stage "
+        "coefficients where it took the cutoff",
+    ("ops/pallas/pulse_kernel.py", "pulse_accumulate_pallas"):
+        "the Pallas kernel; counterpart ops/cuda/pulse_kernel.py",
+    ("ops/pallas/pulse_kernel.py", "BLK"):
+        "the Pallas block; the CUDA tile is ops/cuda/pulse_kernel.py:TILE",
+    ("ops/pallas/pulse_kernel.py", "OCTET"):
+        "the Pallas sublane group of the TPU's vector registers",
+    ("utils/aot.py", "wrap"): "the exported-module store: " + COMPILE,
+    ("utils/aot.py", "store_dir"): "the exported-module store: " + COMPILE,
+    ("utils/aot.py", "log"): "the exported-module store: " + COMPILE,
+}
+
+
+def _public_names(path: Path, imported: bool) -> set[str]:
+    """The public names a module binds at its top level: its functions,
+    classes and assignments, and with ``imported`` its imports too."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names.update(n.id for t in targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+        elif imported and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_goofer_tpu_name_is_ported_or_decided_against():
+    """Parsed, not imported: every public top-level name of each
+    goofer_tpu module exists in the port's module of the same path, or
+    stands in NOT_PORTED with its reason; and every NOT_PORTED entry is
+    still missing from the port."""
+    missing = set()
+    for path in sorted((REPO / "goofer_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "goofer_tpu")
+        ours = REPO / "goofer_tpu_torch" / rel
+        have = _public_names(ours, True) if ours.is_file() else set()
+        missing.update((rel.as_posix(), name)
+                       for name in _public_names(path, False) - have)
+    assert sorted(missing - NOT_PORTED.keys()) == []
+    assert sorted(NOT_PORTED.keys() - missing) == []
 
 
 def test_midi_to_hz_matches_goofer_tpu():
