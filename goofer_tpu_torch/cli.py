@@ -8,8 +8,9 @@ Port of goofer_tpu/cli.py.  Four modes, selected as the reference does:
 * one argument, an existing folder or audio file (WAV, FLAC, AIFF or
   MP3): extract and cache the features of every audio file under it;
 * 13 arguments: render one note (a source without a ``.goofy`` cache is
-  analysed first and the cache saved beside it); ``SE1`` opens the
-  voicing editor mid-render when a display exists.
+  analysed first and the cache saved beside it), one ``request`` of
+  utils/profiling.py; ``SE1`` opens the voicing editor mid-render when a
+  display exists.
 
 All run on CUDA unless $GOOFER_TPU_TORCH_DEVICE names another device;
 without CUDA they fail rather than falling back.  A render logs how many
@@ -24,6 +25,7 @@ from pathlib import Path
 
 from goofer_tpu_torch import config
 from goofer_tpu_torch.ops.cuda import launch_counts
+from goofer_tpu_torch.utils import profiling
 
 log = logging.getLogger("goofer_tpu_torch")
 
@@ -90,16 +92,19 @@ def main(argv=None) -> int:
     from goofer_tpu_torch.editor import gui
     from goofer_tpu_torch.sampler.resampler import GooferResampler
 
-    try:
-        # SE1 blocks on the voicing editor mid-render like the reference
-        # (SillySampler.py:581-611) whenever a display is available
-        GooferResampler(*argv[:13],
-                        editor_hook=gui.available_interactive_hook())
-    except Exception:
-        log.exception("Failed to render")
-        return 1
-    log.info("Kernel launches: %s", ", ".join(
-        f"{name} {n}" for name, n in launch_counts().items()))
+    with profiling.request(notes=1):
+        try:
+            # SE1 blocks on the voicing editor mid-render like the
+            # reference (SillySampler.py:581-611) whenever a display is
+            # available
+            GooferResampler(*argv[:13],
+                            editor_hook=gui.available_interactive_hook())
+        except Exception:
+            log.exception("Failed to render")
+            return 1
+        if log.isEnabledFor(logging.INFO):
+            log.info("Kernel launches: %s", ", ".join(
+                f"{name} {n}" for name, n in launch_counts().items()))
     return 0
 
 

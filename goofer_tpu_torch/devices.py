@@ -9,6 +9,7 @@ batch without loading the render stack that parallel/ builds on.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -43,7 +44,9 @@ def run_on_slots(slots: list, tasks: list) -> list:
     Slots that share a device share its stream, and eager launches hold
     the interpreter lock, so threads for them would only add switching.
     Every worker is joined, then the first exception raised in any worker
-    is raised here: a failed shard is never skipped."""
+    is raised here: a failed shard is never skipped.  A worker thread
+    runs in a copy of the caller's context, so its spans join the
+    caller's request (utils/profiling.py)."""
     results = [[] for _ in slots]
     by_device: dict = {}
     for i, t in enumerate(tasks):
@@ -60,7 +63,8 @@ def run_on_slots(slots: list, tasks: list) -> list:
             work(dev, idx)
         return results
     with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
-        futures = [pool.submit(work, dev, idx)
+        futures = [pool.submit(contextvars.copy_context().run, work, dev,
+                               idx)
                    for dev, idx in by_device.items()]
     for future in futures:
         future.result()

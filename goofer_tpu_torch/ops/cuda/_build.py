@@ -80,7 +80,10 @@ def build_library(source: Path, flags, find_compiler) -> Path:
     out = library_path(source, flags)
     if out.exists():
         return out
+    from goofer_tpu_torch.utils.profiling import count
+
     compiler = find_compiler()
+    count("setup.kernel_build")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
@@ -100,7 +103,8 @@ def build_library(source: Path, flags, find_compiler) -> Path:
 
 class Kernel:
     """One ``csrc/<name>.cu`` library: ``build()`` compiles it unless this
-    source's build exists; ``load()`` opens it once per process and
+    source's build exists; ``function()`` opens it once per process (the
+    span ``setup.kernel_load``, recorded whether spans are on or not) and
     declares ``symbol``'s C signature."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
@@ -123,10 +127,13 @@ class Kernel:
         """The loaded C entry point, building the library if needed."""
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                fn = getattr(lib, self.symbol)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
+                from goofer_tpu_torch.utils.profiling import span
+
+                with span("setup.kernel_load", always=True):
+                    lib = ctypes.CDLL(str(self.build()))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
                 self._lib = lib
             return getattr(self._lib, self.symbol)
 

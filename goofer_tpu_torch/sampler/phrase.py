@@ -48,6 +48,7 @@ from goofer_tpu_torch.sampler.resampler import (
     acquire_features,
 )
 from goofer_tpu_torch.utils.audio_io import write_wav
+from goofer_tpu_torch.utils.profiling import count, entry, span, traced
 
 
 @dataclass
@@ -81,6 +82,7 @@ class _Planned:
 # mid-use.
 _cache_lock = threading.Lock()
 _plan_memo: dict = {}
+PLAN_MEMO_LIMIT = 4096
 
 # When a phrase has more distinct note geometries than this, 'auto'
 # bucketing kicks in: padded-length buckets trade masked device work for
@@ -129,6 +131,7 @@ def group_planned(planned) -> dict:
     }
 
 
+@traced("plan.phrase", notes=lambda notes, *a, **k: len(notes))
 def plan_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
                 hop: int = config.SAMPLER_HOP,
                 bucket: bool | str = "auto", device=None):
@@ -141,19 +144,26 @@ def plan_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
     (resampler._bucketize); ``"auto"`` (default) buckets only when the
     phrase has more than AUTO_BUCKET_GEOMETRIES distinct geometries.
     ``device`` is where a knot-coded envelope is decoded, as for
-    GooferResampler."""
+    GooferResampler.
+
+    Spans ``plan.features`` (int keys and reversed copies of a source's
+    features), ``plan.memo``, ``plan.flags``, ``plan.prepare`` and
+    ``plan.bucket``; counters ``plan.notes`` and ``plan.memo.hit`` /
+    ``.miss`` / ``.clear``."""
     device = config.get_device(device)
+    count("plan.notes", len(notes))
     feature_cache: dict = {}
     prep_cache: dict = {}
     planned = []
     for i, spec in enumerate(notes):
         if spec.in_file not in feature_cache:
             feats = acquire_features(Path(spec.in_file), n_fft, hop, device)
-            env, f0i, vmask, forms, sr, ylen = feats
-            forms_c = formants_to_int_keys(forms)
-            rev = (env[:, ::-1], f0i[::-1], vmask[::-1],
-                   {k: np.asarray(forms_c[k])[::-1] for k in forms_c})
-            feature_cache[spec.in_file] = (feats, forms_c, rev)
+            with span("plan.features"):
+                env, f0i, vmask, forms, sr, ylen = feats
+                forms_c = formants_to_int_keys(forms)
+                rev = (env[:, ::-1], f0i[::-1], vmask[::-1],
+                       {k: np.asarray(forms_c[k])[::-1] for k in forms_c})
+                feature_cache[spec.in_file] = (feats, forms_c, rev)
         feats, forms_c, rev = feature_cache[spec.in_file]
         env, f0i, vmask, forms, sr, ylen = feats
         # cross-call plan memo: keyed on the note spec + the IDENTITY of
@@ -162,12 +172,14 @@ def plan_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
         # same notes skip the flag decode and the cut/loop/pitch planning;
         # arrays stay the SAME objects, so arrays shared by a group still
         # go to the device once.
-        mkey = (id(feats), spec.pitch, spec.velocity, spec.flags,
-                spec.offset, spec.length, spec.consonant, spec.cutoff,
-                spec.volume, spec.modulation, spec.tempo,
-                spec.pitch_string, n_fft, hop)
-        with _cache_lock:
-            hit = _plan_memo.get(mkey)
+        with span("plan.memo"):
+            mkey = (id(feats), spec.pitch, spec.velocity, spec.flags,
+                    spec.offset, spec.length, spec.consonant, spec.cutoff,
+                    spec.volume, spec.modulation, spec.tempo,
+                    spec.pitch_string, n_fft, hop)
+            with _cache_lock:
+                hit = _plan_memo.get(mkey)
+                count("plan.memo.miss" if hit is None else "plan.memo.hit")
         if hit is None:
             r = GooferResampler(
                 spec.in_file, "/dev/null", spec.pitch, spec.velocity,
@@ -185,18 +197,20 @@ def plan_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
                                             cache=prep_cache)
             # pin feats so its id() stays unique while the entry lives
             hit = (rs, arrays, scalars, feats)
-            with _cache_lock:
-                if len(_plan_memo) > 4096:
+            with span("plan.memo"), _cache_lock:
+                if len(_plan_memo) > PLAN_MEMO_LIMIT:
                     _plan_memo.clear()
+                    count("plan.memo.clear")
                 _plan_memo[mkey] = hit
         planned.append(_Planned(i, hit[0], hit[1], hit[2]))
 
-    if bucket == "auto":
-        bucket = len({(_spacing_neutral(pl.rs), _shape_key(pl))
-                      for pl in planned}) > AUTO_BUCKET_GEOMETRIES
-    if bucket:
-        for pl in planned:
-            pl.rs, pl.arrays = _bucketize(pl.rs, pl.arrays, prep_cache)
+    with span("plan.bucket", notes=len(planned)):
+        if bucket == "auto":
+            bucket = len({(_spacing_neutral(pl.rs), _shape_key(pl))
+                          for pl in planned}) > AUTO_BUCKET_GEOMETRIES
+        if bucket:
+            for pl in planned:
+                pl.rs, pl.arrays = _bucketize(pl.rs, pl.arrays, prep_cache)
     return planned, feature_cache
 
 
@@ -204,6 +218,7 @@ def _true_len(pl: _Planned, rs) -> int:
     return int(pl.scalars.get("n_true") or rs.n)
 
 
+@traced("phrase.group", notes=lambda rs, members, *a, **k: len(members))
 def render_group(rs, members, seed: int, pcm16: bool, device) -> torch.Tensor:
     """One group as one batched pass on ``device``: (B, max true length)
     float32, or int16 PCM with ``pcm16``.  Note ``m`` draws its noise
@@ -220,6 +235,7 @@ def render_group(rs, members, seed: int, pcm16: bool, device) -> torch.Tensor:
     return out
 
 
+@entry(notes=lambda notes, *a, **k: len(notes))
 def render_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
                   hop: int = config.SAMPLER_HOP, seed: int = 0,
                   pcm16: bool = False, bucket: bool | str = "auto",
@@ -247,7 +263,11 @@ def render_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
     $GOOFER_TPU_TORCH_DEVICE says otherwise).  ``mesh`` (a
     parallel.mesh.Mesh, not together with ``device``) splits every
     group's notes over the mesh's slots; planning decodes knot envelopes
-    on its first device."""
+    on its first device.
+
+    One ``request``; spans ``phrase.groups`` (grouping), ``phrase.group``
+    per pass, ``render.fetch`` (the copies' issue, then the host arrays)
+    and ``render.wait``."""
     if mesh is not None and device is not None:
         raise ValueError("render_phrase: pass device= or mesh=, not both")
     slots = (mesh.slots if mesh is not None
@@ -259,32 +279,39 @@ def render_phrase(notes, n_fft: int = config.SAMPLER_N_FFT,
     def issue(rs, members, dev):
         result = render_group(rs, members, seed, pcm16, dev)
         if fetch and dev.type == "cuda":
-            host = torch.empty(result.shape, dtype=result.dtype,
-                               pin_memory=True)
-            host.copy_(result, non_blocking=True)
+            with span("render.fetch", notes=len(members)):
+                host = torch.empty(result.shape, dtype=result.dtype,
+                                   pin_memory=True)
+                host.copy_(result, non_blocking=True)
             result = host
         return rs, members, result
 
     tasks = [[] for _ in slots]
-    for (rs, _), members in group_planned(planned).items():
-        for i, (lo, hi) in enumerate(shard_bounds(len(members), len(slots))):
-            if hi > lo:
-                tasks[i].append(partial(issue, rs, members[lo:hi], slots[i]))
+    with span("phrase.groups", notes=len(planned)):
+        for (rs, _), members in group_planned(planned).items():
+            for i, (lo, hi) in enumerate(shard_bounds(len(members),
+                                                      len(slots))):
+                if hi > lo:
+                    tasks[i].append(partial(issue, rs, members[lo:hi],
+                                            slots[i]))
     pending = [p for done in run_on_slots(slots, tasks) for p in done]
 
-    synchronize(slots)
+    with span("render.wait", notes=len(planned)):
+        synchronize(slots)
     if not fetch:
         return None
-    for rs, members, result in pending:
-        result = result.numpy()
-        for j, m in enumerate(members):
-            outs[m.index] = result[j, :_true_len(m, rs)]
+    with span("render.fetch", notes=len(planned)):
+        for rs, members, result in pending:
+            result = result.numpy()
+            for j, m in enumerate(members):
+                outs[m.index] = result[j, :_true_len(m, rs)]
     return outs
 
 
+@entry(notes=lambda notes, *a, **k: len(notes))
 def render_phrase_to_wavs(notes, out_paths, **kw):
     """Render and write one WAV per note (batch offline rendering), each
-    at its source's sample rate."""
+    at its source's sample rate: one ``request``."""
     outs = render_phrase(notes, **kw)
     mesh = kw.get("mesh")
     device = (mesh.slots[0] if mesh is not None

@@ -45,6 +45,7 @@ from goofer_tpu_torch.ops.filters import gaussian_blur1d
 from goofer_tpu_torch.ops.interp import gather_lerp
 from goofer_tpu_torch.ops.jitter import volume_jitter
 from goofer_tpu_torch.ops.scan_iir import dynamic_butter_filter
+from goofer_tpu_torch.utils.profiling import traced
 
 
 @dataclass(frozen=True)
@@ -268,6 +269,7 @@ def _tension(rs: RenderStatic, harmonic, aper_bre, f0_new, tension, sr):
     return harmonic * gain, aper_bre * gain
 
 
+@traced("render.issue", notes=lambda rs, env_cut, *a, **k: env_cut.shape[0])
 def render_note_core(rs: RenderStatic,
                      env_cut, f0_cut, mask_cut,
                      env_pos0, env_pos1, env_w,
@@ -283,7 +285,8 @@ def render_note_core(rs: RenderStatic,
     (``device_inputs`` prepares all three).  ``tracks`` are the sanitized
     + smoothed F1..F4 tracks (strength bells), ``tracks_raw`` the
     warp-anchor tracks.  Returns the (B, rs.n) float32 waveforms; with
-    ``rs.masked`` each row is zero past its ``n_true``."""
+    ``rs.masked`` each row is zero past its ``n_true``.  Only enqueues:
+    the span ``render.issue``."""
     sr, n_fft, hop, n = rs.sr, rs.n_fft, rs.hop, rs.n
     sc = scalars
     dev = env_cut.device
@@ -463,6 +466,7 @@ def render_note_core(rs: RenderStatic,
     return out
 
 
+@traced("render.upload", notes=lambda rs, arrays, *a, **k: len(arrays))
 def device_inputs(rs: RenderStatic, arrays: list, scalars: list, seeds: list,
                   device):
     """B notes' host planning output as ``render_note_core``'s batched
@@ -474,7 +478,7 @@ def device_inputs(rs: RenderStatic, arrays: list, scalars: list, seeds: list,
     expanded over the batch where every note shares it (goofer_tpu's
     in_axes=None case), else gathered there into its rows.  All
     scalars travel as one (B, S) float32 array, rounded as goofer_tpu
-    traces them."""
+    traces them.  The copies block: the span ``render.upload``."""
     b = len(arrays)
     tensors = {}
     for k in ARRAY_KEYS:

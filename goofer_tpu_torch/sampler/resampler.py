@@ -38,8 +38,16 @@ from goofer_tpu_torch.sampler.render_core import RenderStatic, render_note
 from goofer_tpu_torch.utils.audio_io import write_wav
 from goofer_tpu_torch.utils.profiling import (
     StageTimer,
+    count,
     device_trace,
+    entry,
+    phases,
     profiling_enabled,
+    snapshot,
+    span,
+    span_report,
+    spans_enabled,
+    traced,
 )
 
 log = logging.getLogger("goofer_tpu_torch")
@@ -253,6 +261,7 @@ def _extract_and_save(in_file: Path, feat: Path, n_fft: int, hop: int,
     return np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, len(y)
 
 
+@traced("features.acquire")
 def acquire_features(in_file: Path, n_fft: int, hop: int,
                      device: torch.device):
     """Load the source's cached ``.goofy`` or extract and save it
@@ -266,7 +275,11 @@ def acquire_features(in_file: Path, n_fft: int, hop: int,
 
     Thread-safe: of concurrent requests for one source without a cache,
     one extracts it and writes the ``.goofy`` atomically while the others
-    wait, then load it."""
+    wait, then load it.
+
+    Counters ``features.memo.hit`` / ``.miss`` (an extraction, or a load
+    and decode) / ``.clear``; spans ``features.extract``, ``.load`` and
+    ``.decode``."""
     in_file = Path(in_file)
     feat = _feature_path(in_file)
     if not feat.exists():
@@ -274,23 +287,31 @@ def acquire_features(in_file: Path, n_fft: int, hop: int,
             lock = _extract_locks.setdefault(str(feat), threading.Lock())
         with lock:
             if not feat.exists():
-                return _extract_and_save(in_file, feat, n_fft, hop, device)
+                count("features.memo.miss")
+                with span("features.extract"):
+                    return _extract_and_save(in_file, feat, n_fft, hop,
+                                             device)
     ck = (str(feat), feat.stat().st_mtime_ns, n_fft, hop)
     with _decoded_lock:
         hit = _decoded_cache.get(ck)
+        count("features.memo.miss" if hit is None else "features.memo.hit")
     if hit is not None:
         return hit
     log.info("Loading cached features")
-    env, f0i, vmask, forms, sr, ylen = load_features(feat)
+    with span("features.load"):
+        env, f0i, vmask, forms, sr, ylen = load_features(feat)
     if isinstance(env, dict) and env.get("mode") == "knots":
-        knots = torch.as_tensor(
-            np.asarray(env["knot_vals_log"], dtype=np.float32), device=device)
-        env = decode_env_from_knots(knots, env["sr"], env["n_fft"],
-                                    env["n_bins"]).cpu().numpy()
+        with span("features.decode"):
+            knots = torch.as_tensor(
+                np.asarray(env["knot_vals_log"], dtype=np.float32),
+                device=device)
+            env = decode_env_from_knots(knots, env["sr"], env["n_fft"],
+                                        env["n_bins"]).cpu().numpy()
     out = (np.asarray(env, dtype=np.float32), f0i, vmask, forms, sr, ylen)
     with _decoded_lock:
         if len(_decoded_cache) > 64:
             _decoded_cache.clear()
+            count("features.memo.clear")
         _decoded_cache[ck] = out
     return out
 
@@ -321,9 +342,10 @@ class GooferResampler:
                  autorender: bool = True):
         self.in_file = Path(in_file)
         self.out_file = Path(out_file)
-        self.params = NoteParams.from_args(
-            pitch, velocity, flags, offset, length, consonant, cutoff,
-            volume, modulation, tempo, pitch_string)
+        with span("plan.flags"):
+            self.params = NoteParams.from_args(
+                pitch, velocity, flags, offset, length, consonant, cutoff,
+                volume, modulation, tempo, pitch_string)
         self.editor_hook = editor_hook
         self.n_fft = n_fft
         self.hop = hop
@@ -332,33 +354,44 @@ class GooferResampler:
         if autorender:
             self.render()
 
+    @entry()
     def render(self) -> None:
-        """Render the note and write its WAV.  $GOOFER_TPU_PROFILE logs
-        the features / resample / write split, $GOOFER_TPU_TRACE_DIR
-        writes a trace of the render (utils/profiling.py)."""
+        """Render the note and write its WAV, one ``request``.
+        $GOOFER_TPU_PROFILE logs the features / resample / write split and
+        then the span totals, $GOOFER_TPU_TRACE_DIR writes a trace of the
+        render (utils/profiling.py).  With spans on, the host's wait for
+        the card is its own span (``render.wait``), ahead of the copy."""
         p = self.params
         timer = StageTimer(enabled=profiling_enabled(), device=self.device)
+        before = snapshot(records=False) if timer.enabled else None
         with device_trace(device=self.device):
             with timer.stage("features"):
                 env, f0i, vmask, forms, sr, ylen = acquire_features(
                     self.in_file, self.n_fft, self.hop, self.device)
-                forms = formants_to_int_keys(forms)
-                if p.reverse:
-                    log.info("Reversing features (R flag)")
-                    env = env[:, ::-1]
-                    f0i = f0i[::-1]
-                    vmask = vmask[::-1]
-                    forms = {k: np.asarray(forms[k])[::-1] for k in forms}
+                with span("plan.features"):
+                    forms = formants_to_int_keys(forms)
+                    if p.reverse:
+                        log.info("Reversing features (R flag)")
+                        env = env[:, ::-1]
+                        f0i = f0i[::-1]
+                        vmask = vmask[::-1]
+                        forms = {k: np.asarray(forms[k])[::-1]
+                                 for k in forms}
 
             with timer.stage("resample"):
                 out = self.resample(env, f0i, vmask, forms, sr, ylen)
-                out = out.cpu().numpy()
+                if spans_enabled() and out.device.type == "cuda":
+                    with span("render.wait"):
+                        torch.cuda.current_stream(out.device).synchronize()
+                with span("render.fetch"):
+                    out = out.cpu().numpy()
 
             with timer.stage("write"):
                 log.info("Writing %s", self.out_file)
                 write_wav(self.out_file, out, sr)
         if timer.enabled:
             timer.report(audio_seconds=len(out) / sr)
+            log.info("%s", span_report(snapshot(records=False).since(before)))
 
     def _editor_roundtrip(self, mask_cut: np.ndarray, cut, sr):
         """SE1: run the voicing editor on the note snippet and write the
@@ -385,10 +418,12 @@ class GooferResampler:
 
     def resample(self, env, f0i, vmask, forms, sr, ylen) -> torch.Tensor:
         """Host planning, then the note render on ``self.device``."""
+        count("plan.notes")
         rs, arrays, scalars = self.prepare(env, f0i, vmask, forms, sr, ylen)
         log.info("Synthesizing")
         return render_note(rs, arrays, scalars, self.seed, self.device)
 
+    @traced("plan.prepare")
     def prepare(self, env, f0i, vmask, forms, sr, ylen, cache=None):
         """Host planning: cut geometry, loop/velocity index plans, formant
         sanitize, pitch curve, pulse bounds.  Returns (RenderStatic,
@@ -411,6 +446,8 @@ class GooferResampler:
                 memo[key] = val
             return val
 
+        ph = phases()
+        ph.mark("plan.cut")
         cut = plan_cut(sample_len_sec, sr, hop, p.offset_sec,
                        p.consonant_sec, p.cutoff_sec, p.reverse)
         log.info("Interpolating features")
@@ -444,6 +481,7 @@ class GooferResampler:
         if p.force_voiced:
             mask_cut = np.ones_like(mask_cut)
 
+        ph.mark("plan.loop")
         # --- sustain loop + velocity plans ----------------------------
         desired_tail_samples = int(p.length_sec * sr)
         desired_tail_frames = int(np.ceil(p.length_sec * sr / hop))
@@ -469,6 +507,7 @@ class GooferResampler:
         n_total = (vel_pre_new + (n_loop - pre_samples) if vel_samp_on
                    else n_loop)
 
+        ph.mark("plan.tracks")
         # --- formant tracks: loop -> velocity -> canon -> sanitize ----
         track_plan = plan_track_loop(pre_frames, tail_frames,
                                      desired_tail_frames, p.loop_mode)
@@ -516,6 +555,7 @@ class GooferResampler:
              p.loop_mode, desired_tail_frames, target_frames, t_env, vel),
             build_tracks)
 
+        ph.mark("plan.pitch")
         # --- pitch curve ------------------------------------------------
         # the device interpolates the tick-rate curve per sample; the
         # host's dense curve only feeds the pd scale and pulse bounds
@@ -563,6 +603,7 @@ class GooferResampler:
                  p.tempo, p.bend_cents.tobytes()),
                 build_pd_ref)
 
+        ph.mark("plan.scalars")
         # --- fry weights and tension ------------------------------------
         vf = min(100.0, max(-100.0, float(p.fry_amount)))
         fry_on = vf != 0.0
@@ -680,6 +721,7 @@ class GooferResampler:
             "vel_factor": float(vel if vel_samp_on else 1.0),
             **fry_sc,
         }
+        ph.end()
         return rs, arrays, scalars
 
 

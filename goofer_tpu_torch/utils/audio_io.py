@@ -16,6 +16,7 @@ import numpy as np
 from scipy.io import wavfile
 
 from goofer_tpu_torch import native
+from goofer_tpu_torch.utils.profiling import traced
 
 AUDIO_EXTS = [".wav", ".flac", ".aiff", ".aif", ".mp3"]
 
@@ -65,8 +66,10 @@ def read_wav_mono(path) -> tuple[np.ndarray, int]:
     return y, sr
 
 
+@traced("io.write")
 def write_wav(path, data: np.ndarray, sr: int) -> None:
-    """Write audio as 16-bit PCM WAV (soundfile's default subtype).
+    """Write audio as 16-bit PCM WAV (soundfile's default subtype): the
+    span ``io.write``.
 
     Float input is quantized by the native codec, as goofer_tpu does;
     int16 input (the PCM of ``render_phrase(..., pcm16=True)``) is written
