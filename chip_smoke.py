@@ -299,9 +299,10 @@ HEAVY = ("heavy_stack", "C4", 100,
          0, 100, 0, "!120", "AA")
 HEAVY_CASCADE_LAUNCHES = 5
 HEAVY_PULSE_LAUNCHES = 4
-# 2 of 3529 taps, 1 of 161, 201 and 75, 2 of 99 along the samples; 1 of
-# 17 and 15 along the bins, 4 complex spectra of 5 taps in one launch each
-HEAVY_BLUR_LAUNCHES = 13
+# 3 of 3529 taps (pd's gain, voicing mask and scale), 1 of 161, 201 and
+# 75, 2 of 99 along the samples; 1 of 17 and 15 along the bins, 4 complex
+# spectra of 5 taps in one launch each
+HEAVY_BLUR_LAUNCHES = 14
 # relative to max|x|: the kernel's in-order fmaf sum and cuDNN's conv1d of
 # the same reflect-padded rows (float32 on both sides, TF32 off), up to
 # 3529 normalized taps

@@ -41,11 +41,11 @@ from goofer_tpu_torch.ops.envelope import (
     formant_width_warp,
     fry_env_shift,
 )
-from goofer_tpu_torch.ops.filters import gaussian_blur1d
+from goofer_tpu_torch.ops.filters import gaussian_blur1d, gaussian_kernel1d
 from goofer_tpu_torch.ops.interp import gather_lerp
 from goofer_tpu_torch.ops.jitter import volume_jitter
 from goofer_tpu_torch.ops.scan_iir import dynamic_butter_filter
-from goofer_tpu_torch.utils.profiling import traced
+from goofer_tpu_torch.utils.profiling import count, traced
 
 
 @dataclass(frozen=True)
@@ -109,7 +109,6 @@ def default_scalars() -> dict:
         "normalize": 1.0,
         "pitch_dyn": 0.0,
         "pd_baseline": 0.0,
-        "pd_ref": 1.0,
         "tick_dt_samp": 1.0,
         "n_ticks": 1.0,
         # true output samples; 0 stands for RenderStatic.n
@@ -269,6 +268,65 @@ def _tension(rs: RenderStatic, harmonic, aper_bre, f0_new, tension, sr):
     return harmonic * gain, aper_bre * gain
 
 
+def pd_sigma(sr: int) -> float:
+    """The pd flag's bend blur, 10 ms (ref: SillySampler.py:862)."""
+    return float(max(1, int(0.010 * sr)))
+
+
+def pd_scale(rs: RenderStatic, pitch_ticks, scalars) -> torch.Tensor:
+    """The pd flag's scale of each row, (B,) float32:
+    ``np.percentile(|blur(curve - pd_baseline)|, 95) + 1e-8`` over the
+    row's true length ``n_true``, the blur reflected at that end, as the
+    reference plans it on the host (ref: SillySampler.py:857-866).
+
+    The curve is interpolated and the baseline subtracted in float64, the
+    baseline as its float32 column plus ``pd_baseline_lo``: a flat bend
+    leaves only the baseline's float32 rounding, which float32 lerps
+    would drown in their own.  The blur is the render's float32 blur,
+    reflected by one gather at each row's ``n_true`` where rows are
+    bucketed (``rs.masked``); the percentile is one sort of the rows,
+    their padding sorted last, and a gather.  Enqueues only: counters
+    ``render.pd_scale`` (rows) and ``render.pd_scale.reflected``."""
+    sc = scalars
+    dev = pitch_ticks.device
+    b, n = pitch_ticks.shape[0], rs.n
+    sigma = pd_sigma(rs.sr)
+
+    def col64(name):
+        return sc[name].double()[:, None]
+
+    pos = torch.minimum(
+        torch.arange(n, dtype=torch.float64, device=dev)
+        / col64("tick_dt_samp"), col64("n_ticks") - 1.0)
+    lo = pos.long()
+    hi = torch.clamp(lo + 1, max=pitch_ticks.shape[-1] - 1)
+    ticks = pitch_ticks.double()
+    # exact where neighbouring ticks are equal, as np.interp is
+    curve = torch.lerp(torch.gather(ticks, 1, lo), torch.gather(ticks, 1, hi),
+                       pos - lo)
+    bend = ((curve - col64("pd_baseline")) - col64("pd_baseline_lo")).float()
+    n_true = sc["n_true"].long()[:, None]
+    count("render.pd_scale", b)
+    if rs.masked:
+        # np.pad(mode="reflect") at n_true, over the blur's reach past it
+        reach = n + len(gaussian_kernel1d(sigma)) // 2
+        period = torch.clamp(2 * (n_true - 1), min=1)
+        j = torch.remainder(torch.arange(reach, device=dev), period)
+        bend = torch.gather(bend, 1, torch.where(j >= n_true, period - j, j))
+        count("render.pd_scale.reflected", b)
+    mag = torch.abs(gaussian_blur1d(bend, sigma)[:, :n])
+    if rs.masked:
+        mag = torch.where(torch.arange(n, device=dev) < n_true, mag,
+                          float("inf"))
+    ranked = torch.sort(mag, dim=-1).values
+    # numpy's linear percentile at index q = 0.95 (n - 1), and its lerp
+    q = 0.95 * (col64("n_true") - 1.0)
+    at = q.long()
+    v = torch.gather(ranked, 1, torch.cat(
+        [at, torch.minimum(at + 1, n_true - 1)], dim=1)).double()
+    return (torch.lerp(v[:, 0], v[:, 1], (q - at)[:, 0]) + 1e-8).float()
+
+
 @traced("render.issue", notes=lambda rs, env_cut, *a, **k: env_cut.shape[0])
 def render_note_core(rs: RenderStatic,
                      env_cut, f0_cut, mask_cut,
@@ -317,13 +375,14 @@ def render_note_core(rs: RenderStatic,
         env_new = env_new * formant_strength_gain(
             env_new.shape[-2:], tracks, sc["formant_strengths"], sr)
 
-    # pd: pitch-driven dynamics (ref: SillySampler.py:857-881); only the
-    # 95th-percentile scale ``pd_ref`` comes from the host
+    # pd: pitch-driven dynamics (ref: SillySampler.py:857-881), scaled
+    # by each row's 95th percentile of the bend (pd_scale)
     dyn_gain = None
     if rs.pd_on:
         pd_bend = gaussian_blur1d(midi_curve - col("pd_baseline"),
-                                  float(max(1, int(0.010 * sr))))
-        v = torch.clamp(pd_bend / col("pd_ref"), -1.0, 1.0)
+                                  pd_sigma(sr))
+        v = torch.clamp(pd_bend / pd_scale(rs, pitch_ticks, sc)[:, None],
+                        -1.0, 1.0)
         signed = torch.where(col("pitch_dyn") > 0, v, -v)
         gain_db = 12.0 * torch.abs(col("pitch_dyn")) * signed
         dyn_gain = torch.clamp(10.0 ** (gain_db / 20.0), 1e-3, 1e3)
@@ -478,7 +537,9 @@ def device_inputs(rs: RenderStatic, arrays: list, scalars: list, seeds: list,
     expanded over the batch where every note shares it (goofer_tpu's
     in_axes=None case), else gathered there into its rows.  All
     scalars travel as one (B, S) float32 array, rounded as goofer_tpu
-    traces them.  The copies block: the span ``render.upload``."""
+    traces them, and ``pd_baseline_lo`` beside them, the rounding of
+    ``pd_baseline`` (for pd_scale).  The copies block: the span
+    ``render.upload``."""
     b = len(arrays)
     tensors = {}
     for k in ARRAY_KEYS:
@@ -496,15 +557,21 @@ def device_inputs(rs: RenderStatic, arrays: list, scalars: list, seeds: list,
                                   device=device)]
         tensors[k] = t
     defaults = default_scalars()
+    # the last column: what each float64 pd baseline loses to float32
+    base = np.asarray([s.get("pd_baseline", 0.0) for s in scalars],
+                      np.float64)
     packed = torch.as_tensor(np.concatenate([
         np.asarray([s.get(k, d) for s in scalars], np.float32).reshape(b, -1)
-        for k, d in defaults.items()], axis=1), device=device)
+        for k, d in defaults.items()]
+        + [(base - base.astype(np.float32)).astype(np.float32)[:, None]],
+        axis=1), device=device)
     sc = {}
     at = 0
     for k, d in defaults.items():
         width = np.size(d)
         sc[k] = packed[:, at] if np.ndim(d) == 0 else packed[:, at:at + width]
         at += width
+    sc["pd_baseline_lo"] = packed[:, at]
     sc["n_true"] = torch.where(sc["n_true"] > 0, sc["n_true"], float(rs.n))
     keys = torch.as_tensor(rnd.stream_keys(seeds, NOTE_STREAMS),
                            device=device)

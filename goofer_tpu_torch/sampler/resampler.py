@@ -97,6 +97,31 @@ def _np_gaussian1d(x: np.ndarray, sigma: float) -> np.ndarray:
     return np.convolve(padded, k, mode="valid")
 
 
+def midi_curve_range(ticks: np.ndarray, tick_dt: float, sr: int,
+                     n: int) -> tuple:
+    """The least and the greatest sample of the pitch curve: ``ticks``
+    (MIDI, one per ``tick_dt`` seconds) interpolated at the ``n`` sample
+    times, held at the last tick past it.
+
+    The sampled curve is linear between two ticks, and its rounded
+    values are monotone there, so its extremes lie at the samples on
+    either side of a tick.  np.interp runs on those samples alone, with
+    the same arithmetic as over all ``n``: the same bits as the dense
+    curve's min and max."""
+    semi = np.asarray(ticks, np.float64)
+    k = len(semi)
+    if k == 1:
+        return float(semi[0]), float(semi[0])
+    t_max = (k - 1) * tick_dt
+    # the first sample at or past each tick, give or take one
+    edge = np.ceil(np.arange(1, k) * (tick_dt * sr)).astype(np.int64)
+    j = np.unique(np.clip(np.concatenate(
+        [[0, n - 1], edge - 2, edge - 1, edge, edge + 1]), 0, n - 1))
+    t_clamped = np.clip(j / sr, 0.0, t_max)
+    curve = np.interp(t_clamped / tick_dt, np.arange(k), semi)
+    return float(np.min(curve)), float(np.max(curve))
+
+
 def sanitize_formant_track(track: np.ndarray, t: int, sr: int,
                            min_hz: float, max_hz: float | None = None,
                            sigma_frames: float = 3) -> np.ndarray:
@@ -557,8 +582,8 @@ class GooferResampler:
 
         ph.mark("plan.pitch")
         # --- pitch curve ------------------------------------------------
-        # the device interpolates the tick-rate curve per sample; the
-        # host's dense curve only feeds the pd scale and pulse bounds
+        # the device interpolates the tick-rate curve per sample; the host
+        # needs only the sampled curve's extremes, for the pulse bounds
         tick_dt = 60.0 / (p.tempo * 96.0)
 
         def build_ticks():
@@ -575,33 +600,14 @@ class GooferResampler:
             ("ticks", p.pitch_midi, p.t_cents, p.bend_cents.tobytes()),
             build_ticks)
 
-        def build_midi_curve():
-            semi = pitch_ticks[:n_ticks].astype(np.float64)
-            if n_ticks == 1:
-                return np.full(n_total, float(semi[0]))
-            t_max = (n_ticks - 1) * tick_dt
-            t_clamped = np.clip(np.arange(n_total) / sr, 0.0, t_max)
-            return np.interp(t_clamped / tick_dt, np.arange(n_ticks), semi)
-
-        midi_curve = cached(
+        midi_lo, midi_hi = cached(
             ("midi", n_total, p.pitch_midi, p.t_cents, p.tempo,
              p.bend_cents.tobytes()),
-            build_midi_curve)
-
-        # --- pd: 95th-percentile scale of the smoothed bend (host) -----
+            lambda: midi_curve_range(pitch_ticks[:n_ticks], tick_dt, sr,
+                                     n_total))
+        # pd: the bend is measured from this baseline; its 95th-percentile
+        # scale is render_core.pd_scale's, on the device
         pd_baseline = p.pitch_midi + (p.t_cents / 100.0)
-
-        def build_pd_ref():
-            bend = _np_gaussian1d(midi_curve - pd_baseline,
-                                  float(max(1, int(0.010 * sr))))
-            return float(np.percentile(np.abs(bend), 95.0) + 1e-8)
-
-        pd_ref = 1.0
-        if p.pitch_dyn != 0.0:
-            pd_ref = cached(
-                ("pd", n_total, pd_baseline, p.pitch_midi, p.t_cents,
-                 p.tempo, p.bend_cents.tobytes()),
-                build_pd_ref)
 
         ph.mark("plan.scalars")
         # --- fry weights and tension ------------------------------------
@@ -614,8 +620,8 @@ class GooferResampler:
         # --- pulse bounds from the f0 range this note can produce -------
         # longest pulse ~ sr/f0_floor samples, onsets up to f0_ceil/sr per
         # sample, pulses are zero past u = Ra + Rk*(1-Ra) ~= 0.804
-        hz_lo = float(440.0 * 2.0 ** ((np.min(midi_curve) - 69.0) / 12.0))
-        hz_hi = float(440.0 * 2.0 ** ((np.max(midi_curve) - 69.0) / 12.0))
+        hz_lo = float(440.0 * 2.0 ** ((midi_lo - 69.0) / 12.0))
+        hz_hi = float(440.0 * 2.0 ** ((midi_hi - 69.0) / 12.0))
         floor_cands = [hz_lo, config.PULSE_FALLBACK_F0]
         ceil_cands = [hz_hi, config.PULSE_FALLBACK_F0]
         if fry_on:
@@ -698,7 +704,6 @@ class GooferResampler:
             "normalize": p.normalize,
             "pitch_dyn": p.pitch_dyn,
             "pd_baseline": pd_baseline,
-            "pd_ref": pd_ref,
             "tick_dt_samp": tick_dt * sr,
             "n_ticks": float(n_ticks),
             "fry_vh": p.fry_base_hz,

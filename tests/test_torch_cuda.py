@@ -457,6 +457,61 @@ def test_phrase_row_equals_note_alone_on_card(dev, tmp_path):
         assert lsd_db(out, alone, SR) < 0.1
 
 
+def _host_pd_scale(arrays, scalars, sr):
+    """The pd scale as the host planned it before the render took it: a
+    float64 percentile of the bend's FFT blur over the note's true
+    length (np.pad reflects it at that end)."""
+    from goofer_tpu_torch.sampler.resampler import _np_gaussian1d
+
+    n, k = int(scalars["n_true"]), int(scalars["n_ticks"])
+    tick_dt = scalars["tick_dt_samp"] / sr
+    ticks = np.asarray(arrays["pitch_ticks"][:k], np.float64)
+    t = np.clip(np.arange(n) / sr, 0.0, (k - 1) * tick_dt)
+    curve = (np.full(n, ticks[0]) if k == 1
+             else np.interp(t / tick_dt, np.arange(k), ticks))
+    bend = _np_gaussian1d(curve - scalars["pd_baseline"],
+                          render_core.pd_sigma(sr))
+    return float(np.percentile(np.abs(bend), 95.0) + 1e-8)
+
+
+def test_pd_scale_on_card(dev, tmp_path):
+    """An 80-note bucketed phrase of the heavy stack: the card's pd scale
+    of each row is the host's float64 one within 1e-5, flat bends
+    included, and a pass counts each row under ``render.pd_scale`` and
+    each bucketed row under ``render.pd_scale.reflected``."""
+    import shutil
+    from pathlib import Path
+
+    from goofer_tpu_torch.utils import profiling
+    from tests.fixtures_common import VIB, VIB_LONG
+
+    voice = Path(__file__).parent / "golden" / "voice"
+    shutil.copy(voice / "src.wav", tmp_path / "a.wav")
+    shutil.copy(voice / "src_features.goofy", tmp_path / "a_features.goofy")
+    heavy = "sh30sr30sg40su40sj20st-30vf40es30pd40fw20fsta50"
+    notes = [phrase.NoteSpec(str(tmp_path / "a.wav"),
+                             ("A3", "C4", "D4", "E4", "G4")[i % 5],
+                             length=300 + 50 * (i % 21), consonant=60,
+                             flags=heavy + f"t{(i % 7 - 3) * 10}",
+                             pitch_string=(VIB, "AA#199#", VIB_LONG)[i % 3])
+             for i in range(80)]
+    planned, _ = phrase.plan_phrase(notes, device=dev)
+    groups = phrase.group_planned(planned)
+    assert all(rs.masked for rs, _ in groups)
+    for (rs, _), members in groups.items():
+        tensors, sc, _ = render_core.device_inputs(
+            rs, [m.arrays for m in members], [m.scalars for m in members],
+            [0] * len(members), dev)
+        got = render_core.pd_scale(rs, tensors["pitch_ticks"], sc)
+        assert got.is_cuda and got.shape == (len(members),)
+        want = [_host_pd_scale(m.arrays, m.scalars, rs.sr) for m in members]
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5)
+    before = profiling.snapshot()
+    phrase.render_phrase(notes, seed=5, device=dev)
+    c = profiling.snapshot().since(before).counters
+    assert c["render.pd_scale"] == c["render.pd_scale.reflected"] == 80
+
+
 # ------------------------------------------------------- analysis kernels
 
 @pytest.mark.parametrize("frames", [1, 2, 33, 338, 2049, 10300])

@@ -350,6 +350,18 @@ def test_plan_memo_counters(src, monkeypatch):
     assert _since(before).counters["plan.memo.clear"] == 1
 
 
+@pytest.mark.parametrize("flags,rows", [("pd40", 1), ("t10", 0)])
+def test_pd_scale_counters(src, tmp_path, spans_off, flags, rows):
+    """A pd note's render takes its scale on the device: one row counted
+    under ``render.pd_scale``, none reflected (a CLI note is not
+    bucketed); a note without pd counts nothing."""
+    before = profiling.snapshot()
+    _render(src, tmp_path / "out.wav", flags)
+    c = _since(before).counters
+    assert c.get("render.pd_scale", 0) == rows
+    assert "render.pd_scale.reflected" not in c
+
+
 def test_kernel_load_once_per_kernel(monkeypatch, tmp_path, spans_off):
     """``setup.kernel_load`` is recorded at a kernel's first use, with
     spans off too, and never again; a build counts ``setup.kernel_build``

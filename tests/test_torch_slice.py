@@ -31,6 +31,8 @@ from tests.fixtures_common import (  # noqa: E402
     N_FFT,
     NOTE_ARGS,
     SR,
+    VIB,
+    VIB_LONG,
     make_synth_features,
 )
 from tests.test_resample_oracle import (  # noqa: E402
@@ -170,9 +172,94 @@ def test_prepare_matches_jax(features, cfg_id, pitch, velocity, flags, ps,
     for k in arrays_t:
         assert arrays_t[k].dtype == np.asarray(arrays_j[k]).dtype, k
         np.testing.assert_array_equal(arrays_t[k], arrays_j[k], err_msg=k)
+    # the pd scale is taken in the render (test_pd_scale_matches_jax)
+    assert "pd_ref" not in sc_t
     for k, v in sc_t.items():
         np.testing.assert_array_equal(np.asarray(v), np.asarray(sc_j[k]),
                                       err_msg=k)
+
+
+@pytest.mark.parametrize("sr", [22050, 44100, 48000])
+@pytest.mark.parametrize("shape", ["walk", "steps", "flat"])
+def test_midi_curve_range_is_dense_extremes(sr, shape):
+    """The pulse bounds' pitch extremes, from the samples beside each tick,
+    are the dense curve's min and max to the bit (the dense curve as
+    prepare built it: np.interp at every sample, held past the last
+    tick), on curves shorter and longer than the note, at any tempo."""
+    from goofer_tpu_torch.sampler.resampler import midi_curve_range
+
+    rng = np.random.default_rng(sr + len(shape))
+    for _ in range(40):
+        k = int(rng.integers(1, 300))
+        if shape == "walk":
+            semi = 60.0 + np.cumsum(rng.normal(0.0, 0.3, k))
+        elif shape == "steps":
+            semi = 60.0 + rng.integers(-3, 4, k) * rng.choice([0.01, 0.5])
+        else:
+            semi = np.full(k, 60.0 + rng.integers(-30, 31) / 100.0)
+        ticks = semi.astype(np.float32)
+        tick_dt = 60.0 / (float(rng.uniform(40.0, 300.0)) * 96.0)
+        n = int(rng.integers(1, int(1.5 * k * tick_dt * sr) + 2))
+        dense = ticks.astype(np.float64)
+        if k > 1:
+            t = np.clip(np.arange(n) / sr, 0.0, (k - 1) * tick_dt)
+            dense = np.interp(t / tick_dt, np.arange(k), dense)
+        got = midi_curve_range(ticks, tick_dt, sr, n)
+        assert got == (float(np.min(dense)), float(np.max(dense))), (k, n)
+
+
+PD_RADIUS = 1764      # the pd blur's reach: 4 sigma of 441 samples
+PD_CASES = [
+    # (id, rows (pitch, flags, pitch string, length ms), bucket padding:
+    # None unbucketed, "long" or "short" against the blur's reach)
+    ("heavy", [("C4", HEAVY_FLAGS, VIB, 420)], None),
+    # 60 ticks of no bend: the scale is the baseline's float32 rounding,
+    # or 0, where float32 lerps of the ticks would leave their own
+    ("flat-bend", [("D4", HEAVY_FLAGS + "t17", "AA#59#", 420)], None),
+    ("flat-exact", [("C4", HEAVY_FLAGS, "AA#59#", 420)], None),
+    ("flat-bucket", [("A3", HEAVY_FLAGS + "t-30", "AA#59#", 420)], "long"),
+    ("pd-negative", [("D4", "pd-60t-13", VIB_LONG, 1100)], None),
+    # VIB_LONG still bends at the true end, where a bucket's padding
+    # continues it and the host's reflection turns it back
+    ("bucket-long-pad", [("C4", HEAVY_FLAGS, VIB_LONG, 420)], "long"),
+    ("bucket-short-pad", [("C4", HEAVY_FLAGS, VIB_LONG, 330)], "short"),
+    ("bucket-group", [("C4", HEAVY_FLAGS, VIB_LONG, ms)
+                      for ms in (310, 320, 330)], "short"),
+]
+
+
+@pytest.mark.parametrize("rows,padding", [c[1:] for c in PD_CASES],
+                         ids=[c[0] for c in PD_CASES])
+def test_pd_scale_matches_jax(features, rows, padding):
+    """render_core.pd_scale, the pd flag's scale taken in the render, is
+    goofer_tpu's host ``pd_ref`` of each note within 1e-5: bucketed rows
+    reflect at their own true end, whether their padding is longer than
+    the blur's reach or shorter."""
+    from goofer_tpu_torch.sampler.resampler import _bucketize
+
+    want, plans = [], []
+    for pitch, flags, ps, length_ms in rows:
+        args = _args(pitch, 100, flags, ps, length_ms)
+        want.append(_jax_plan(features, args, uv0=False)[2]["pd_ref"])
+        r = GooferResampler("/tmp/nonexistent.wav", "/dev/null", *args,
+                            device="cpu", autorender=False)
+        rs, arrays, sc = r.prepare(
+            *_features_for(features, r.params.reverse))
+        if padding:
+            rs, arrays = _bucketize(rs, arrays, {})
+        plans.append((rs, arrays, sc))
+    rs = plans[0][0]
+    assert all(p[0] == rs for p in plans) and rs.pd_on
+    pads = np.asarray([rs.n - sc["n_true"] for _, _, sc in plans])
+    assert rs.masked == bool(padding)
+    assert {None: pads == 0, "long": pads > PD_RADIUS,
+            "short": (pads > 0) & (pads < PD_RADIUS)}[padding].all(), pads
+    tensors, sc, _ = render_core.device_inputs(
+        rs, [p[1] for p in plans], [p[2] for p in plans], [0] * len(plans),
+        "cpu")
+    got = render_core.pd_scale(rs, tensors["pitch_ticks"], sc)
+    assert got.shape == (len(rows),) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
 def test_render_entry_matches_core(features):
