@@ -61,6 +61,10 @@ def test_benchmark_json_keys_and_names():
         assert m["moves"] in e2e
         assert m["source"] in ("device_trace", "program_span",
                                "program_counter", "host_clock")
+        # every cell that reads it reports the metric it moves
+        for w in m["workloads"]:
+            assert m["moves"] in {x["name"] for x in harness.cell_metrics(
+                s, w, "end_to_end")}, (m["name"], w)
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -89,8 +93,10 @@ def test_result_line_follows_the_contract(workload, tmp_path, monkeypatch):
                            "device"]
     assert list(r)[-1] == "checks"
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] >= 1
+    # on the CPU there is no device to read a device metric from
     want = {m["name"] for m in harness.cell_metrics(s, workload,
-                                                    "end_to_end")}
+                                                    "end_to_end")
+            if m["source"] != "device_trace"}
     assert set(r["metrics"]) == want
     assert all(v["value"] > 0 for v in r["metrics"].values())
     assert set(r["device"]) == {"platform", "kind", "count",
@@ -112,6 +118,21 @@ def test_traced_line_carries_the_span_metrics(tmp_path, monkeypatch):
         assert r["metrics"][name]["value"] > 0
     # both aliases stay decoded after the warm-up
     assert r["metrics"]["features.loads_per_note"]["value"] == 0.0
+
+
+def test_traced_note_line_carries_its_window(tmp_path, monkeypatch):
+    cpu_env(monkeypatch)
+    s, mix = tiny_cell(tmp_path, "note.heavy_fresh")
+    r = harness.run_cell("note.heavy_fresh", 5, 0.0, True, spec=s, mix=mix)
+    assert r["correct"] is True
+    m = r["metrics"]
+    assert m["audio_x_realtime.cli"]["value"] > 0
+    assert m["note_p95_ms.cli"]["value"] > 0
+    for name in ("plan.host_ms_per_note.cli", "render.issue_ms_per_note.cli",
+                 "io.write_ms_per_note.cli"):
+        assert m[name]["value"] > 0
+    # the song's names are not the note cell's
+    assert "plan.host_ms_per_note" not in m
 
 
 def run_script(*args, cwd=REPO):

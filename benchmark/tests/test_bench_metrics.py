@@ -88,7 +88,8 @@ def fake_trace(**calls):
         rec.seconds[name] = seconds
         rec.calls[name] = n_calls
         rec.notes[name] = notes
-    return SimpleNamespace(rec=rec, device=None, attributed=None)
+    return SimpleNamespace(rec=rec, window=None, device=None,
+                           attributed=None)
 
 
 def read(name, t):
@@ -150,3 +151,41 @@ def test_roofline_reader():
     assert read("kernels_roofline", t) == pytest.approx(25.0)
     t.attributed = {"op_device_s": {}}
     assert read("kernels_roofline", t) is None
+
+
+def twins():
+    """(twin, base) of each per-layer metric that the per-note cell reads
+    under a name of its own."""
+    out = []
+    for m in harness.load_spec()["per_layer"]:
+        n = m["name"]
+        if n == "cli_kernels_roofline":
+            out.append((n, "kernels_roofline"))
+        elif n.endswith(".cli") and (harness.HERE / "metrics"
+                                     / f"{n[:-4]}.py").is_file():
+            out.append((n, n[:-4]))
+    return out
+
+
+@pytest.mark.parametrize("twin,base", twins())
+def test_twins_read_as_their_base(twin, base):
+    t = fake_trace(plan_phrase=(0.0, 2, 160), prepare=(0.8, 160, 160),
+                   render_note_core=(0.3, 10, 160),
+                   write_wav=(0.16, 160, 160),
+                   acquire_features=(0.96, 200, 200),
+                   load_features=(0.5, 120, 120))
+    t.device = {"busy_s": 0.05, "window_s": 1.0, "kernels": 8600,
+                "notes": 10}
+    assert read(twin, t) == read(base, t)
+    assert hasattr(harness.metric_reader(twin), "install") == hasattr(
+        harness.metric_reader(base), "install")
+
+
+def test_window_readers():
+    t = fake_trace()
+    assert read("audio_x_realtime.cli", t) is None
+    assert read("note_p95_ms.cli", t) is None
+    t.window = {"lat": [0.01] * 94 + [0.1] * 6, "audio_s": 50.0,
+                "window_s": 2.0}
+    assert read("audio_x_realtime.cli", t) == pytest.approx(25.0)
+    assert read("note_p95_ms.cli", t) == pytest.approx(100.0)

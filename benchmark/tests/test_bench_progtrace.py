@@ -36,10 +36,16 @@ def no_open_stretch():
     close()
 
 
+def base_name(name: str) -> str:
+    """The metric that ``name`` reads: the per-note cell's twins end in
+    ``.cli``."""
+    return name[:-len(".cli")] if name.endswith(".cli") else name
+
+
 def cell_names(spec, workload):
     return [m["name"] for m in harness.cell_metrics(spec, workload,
                                                     "per_layer")
-            if m["name"] in NEW]
+            if base_name(m["name"]) in NEW]
 
 
 def test_every_program_metric_has_its_entry():
@@ -50,8 +56,13 @@ def test_every_program_metric_has_its_entry():
         assert m["source"] in ("program_span", "program_counter")
         assert m["moves"] == ("setup_s" if name.startswith("setup.")
                               else "audio_x_realtime")
-    assert set(cell_names(spec, "note.heavy_fresh")) == set(NEW) - {
-        "plan.memo_hit_pct", "phrase.notes_per_group"}
+    for name in cell_names(spec, "note.heavy_fresh"):
+        m = entries[name]
+        assert m["source"] == entries[base_name(name)]["source"]
+        assert m["moves"] == ("setup_s" if name.startswith("setup.")
+                              else "device_ms_per_note")
+    assert {base_name(n) for n in cell_names(spec, "note.heavy_fresh")} == (
+        set(NEW) - {"plan.memo_hit_pct", "phrase.notes_per_group"})
     assert set(cell_names(spec, "song.heavy_fresh")) == set(NEW)
 
 
@@ -99,7 +110,8 @@ def _stand_in_stretch(tmp_path, workload, seed):
         for r in readers.values():
             r.install(t)
         runner.send(next(window))
-        return mix, t, {n: r.read(t) for n, r in readers.items()}
+        return mix, t, {base_name(n): r.read(t)
+                        for n, r in readers.items()}
     finally:
         bank.close()
 

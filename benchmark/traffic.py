@@ -1,6 +1,6 @@
-"""The one traffic generator: a traffic mix is a data file of parameters
-(``traffic/<name>.json``) that this module reads, and the notes are drawn
-from ``--seed``.
+"""The default generator of requests (harness.py, part 2): a traffic mix
+is a data file of parameters (``traffic/<name>.json``) that this module
+reads, and the notes are drawn from ``--seed``.
 
 Every note is fresh: its arguments (and so the phrase planner's memo
 key) differ from every other note of the run, warm-up included; a draw
@@ -20,7 +20,8 @@ import numpy as np
 from benchmark import pitchbend
 
 NAMES = ("C", "C#", "D", "D#", "E", "F", "F#", "G", "G#", "A", "A#", "B")
-# the streams drawn from one seed
+# the streams drawn from one seed; the harness draws CHECK and SAMPLE,
+# every generator WARMUP and WINDOW
 WARMUP, WINDOW, CHECK, SAMPLE = 0, 1, 2, 4
 
 
@@ -121,3 +122,8 @@ class Traffic:
         self.prev_midi = None
         while True:
             yield self._request(g)
+
+
+def generator(mix: dict, inputs, seed: int) -> Traffic:
+    """The mix's notes over the voicebank ``inputs``."""
+    return Traffic(mix, inputs.aliases, inputs.oto, seed)

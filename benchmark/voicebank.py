@@ -1,9 +1,9 @@
-"""The voicebank a cell renders from, built in the run's temporary
-directory from the vendored recording and its ``.goofy`` only: every
-alias is ``voice/src.wav`` and ``voice/src_features.goofy`` under the
-alias's own name (a hard link where the filesystem allows, else a copy),
-and every alias has the recording's own oto entry (offset and
-consonant)."""
+"""The default inputs of a cell (harness.py, part 1): the voicebank a
+cell renders from, built in the run's temporary directory from the
+vendored recording and its ``.goofy`` only: every alias is
+``voice/src.wav`` and ``voice/src_features.goofy`` under the alias's own
+name (a hard link where the filesystem allows, else a copy), and every
+alias has the recording's own oto entry (offset and consonant)."""
 from __future__ import annotations
 
 import os
@@ -45,3 +45,8 @@ class Voicebank:
 
     def close(self) -> None:
         shutil.rmtree(self.root, ignore_errors=True)
+
+
+def build(config: dict) -> Voicebank:
+    """The configuration's voicebank (its ``voicebank`` sizes)."""
+    return Voicebank(config["voicebank"])
